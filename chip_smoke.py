@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (forest_slam_tpu_torch) on one GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing one line with its elapsed seconds:
+
+1. device: fails at once without CUDA; prints the card's name and power
+   limit and the TF32 settings it pins;
+2. build: compiles the CUDA kernels from ``forest_slam_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version at the main
+   path's shapes, with its stated tolerance, its time, the plain version's
+   time and its bound;
+4. main path: renders a 960x600 corridor clip on the card, loads the flagship
+   checkpoint and runs stereo VO (K=1024, refine radius 12, 1024 DLT-6
+   hypotheses) through the kernels, counting their launches; then the same
+   frames through the plain versions for comparison.
+
+The last line is a JSON object {"ok": true, "device": {...}}; any failure
+exits non-zero before it is printed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 CUDA-core
+# and bf16 tensor-core operations/s
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+BF16_OPS = 989e12
+
+UNIQUE_FRAMES = 16
+N_FRAMES = 32
+H, W = 600, 960
+K = 1024
+FRAME_BATCH = 8
+PAIR_BATCH = 8
+MIN_TRACKED = 0.9
+MAX_ATE_M = 0.25
+
+
+def log(msg: str) -> None:
+    print(f"[{time.time() - T_START:7.1f} s] {msg}", flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of fn() after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def check_sparse(dev, gen):
+    from forest_slam_tpu_torch.stereo.sparse import prefilter
+    from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
+
+    B, D, w = FRAME_BATCH, 96, 7
+    # integer-valued images: quarter-integer prefiltered values make every
+    # SAD sum exact, so kernel and plain version must agree bit for bit
+    imgs = torch.randint(0, 256, (2, B, H, W), generator=gen, device=dev).float()
+    pl, pr = prefilter(imgs[0], 31.0).contiguous(), prefilter(imgs[1], 31.0).contiguous()
+    xi = torch.randint(0, W, (B, K), generator=gen, device=dev, dtype=torch.int32)
+    yi = torch.randint(0, H, (B, K), generator=gen, device=dev, dtype=torch.int32)
+    got = sparse_cost_rows(pl, pr, xi, yi, D, w)
+    ref = sparse_cost_rows_plain(pl, pr, xi, yi, D, w)
+    err = (got - ref).abs().max().item()
+    ok = err == 0.0
+    S = D + w - 1
+    nbytes = B * 4 * (min(H * W, K * w * w) + min(H * W, K * w * S) + 2 * K + K * D)
+    b_ms, b_by = bound(nbytes, B * K * D * w * w * 3, F32_OPS)
+    return dict(
+        name="sparse_cost", source="forest_slam_tpu_torch/csrc/sparse_cost.cu",
+        replaces="forest_slam_tpu/stereo/pallas_sparse.py:149", tolerance="exact (0)",
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda: sparse_cost_rows(pl, pr, xi, yi, D, w)),
+        plain_ms=time_ms(lambda: sparse_cost_rows_plain(pl, pr, xi, yi, D, w)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def check_gnn(dev, gen, fe):
+    from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
+
+    layer = fe.superglue.layers["cross_0"]
+    ws, heads = layer.weights(), layer.num_heads
+    N, D = 2 * PAIR_BATCH, 256
+    x = torch.randn((N, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    src = torch.randn((N, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.rand((N, K), generator=gen, device=dev) < 0.7
+    got = gnn_layer(x, src, mask, ws, heads).float()
+    ref = gnn_layer_plain(x, src, mask, ws, heads).float()
+    scale = max(1.0, ref.abs().max().item())
+    err = (got - ref).abs().max().item()
+    mean_err = (got - ref).abs().mean().item()
+    # bf16 outputs: sums in another order may flip a rounding, a bf16 ulp
+    # (2^-8 relative) carried through the layer's later products
+    ok = err <= 0.05 * scale and mean_err <= 2e-3 * scale
+    ops = 2 * N * K * D * D * 4 + 2 * 2 * N * K * K * D + 2 * N * K * (2 * D) * (2 * D) + 2 * N * K * 2 * D * D
+    nbytes = 2 * (3 * N * K * D) + N * K * 4 + sum(t.numel() * t.element_size() for t in ws)
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+    return dict(
+        name="gnn_layer", source="forest_slam_tpu_torch/csrc/gnn_layer.cu",
+        replaces="forest_slam_tpu/frontend/pallas_gnn.py:214",
+        tolerance="max <= 0.05 * max|ref|, mean <= 2e-3 * max|ref|",
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda: gnn_layer(x, src, mask, ws, heads)),
+        plain_ms=time_ms(lambda: gnn_layer_plain(x, src, mask, ws, heads)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def check_sinkhorn(dev, gen, fe):
+    from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
+
+    B, iters = PAIR_BATCH, fe.cfg.superglue.sinkhorn_iterations
+    scores = torch.randn((B, K, K), generator=gen, device=dev) * 1.5
+    scores = (scores + 6.0 * torch.eye(K, device=dev)).contiguous()
+    valid0 = torch.rand((B, K), generator=gen, device=dev) < 0.8
+    valid1 = torch.rand((B, K), generator=gen, device=dev) < 0.8
+    alpha = fe.superglue.bin_score
+    got = sinkhorn_decode(scores, valid0, valid1, alpha, iters)
+    ref = sinkhorn_decode_plain(scores, valid0, valid1, alpha, iters)
+    err = max((got[1] - ref[1]).abs().max().item(), (got[3] - ref[3]).abs().max().item())
+    agree = min((got[0] == ref[0]).float().mean().item(), (got[2] == ref[2]).float().mean().item())
+    # coupling probabilities from sums in another order: float32 rounding;
+    # argmax indices may differ only on near-ties
+    ok = err <= 1e-4 and agree >= 0.999
+    ops = B * K * K * (2 * iters + 3) * 3
+    nbytes = B * (K * K * 4 + 2 * K * 4 + 4 * K * 4)
+    b_ms, b_by = bound(nbytes, ops, F32_OPS)
+    return dict(
+        name="sinkhorn_decode", source="forest_slam_tpu_torch/csrc/sinkhorn.cu",
+        replaces="forest_slam_tpu/frontend/pallas_sinkhorn.py:143",
+        tolerance="scores <= 1e-4 abs, argmax agreement >= 0.999",
+        max_abs_err=err, argmax_agreement=agree, ok=ok,
+        ms=time_ms(lambda: sinkhorn_decode(scores, valid0, valid1, alpha, iters)),
+        plain_ms=time_ms(lambda: sinkhorn_decode_plain(scores, valid0, valid1, alpha, iters)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def check_refine(dev, gen):
+    from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+
+    B, t, R = PAIR_BATCH, 8, 12
+    n, S = 2 * R + 1, 2 * R + t
+    # integer-valued images: every SAD sum is exact, so agreement is bit for bit
+    imgs = torch.randint(0, 256, (2, B, H, W), generator=gen, device=dev).float()
+    img0, img1 = imgs[0].contiguous(), imgs[1].contiguous()
+    ri = lambda lo, hi: torch.randint(lo, hi, (B, K), generator=gen, device=dev, dtype=torch.int32)
+    xi0, yi0 = ri(0, W), ri(0, H)
+    xi1 = (xi0 + ri(-20, 21)).clamp(0, W - 1).contiguous()
+    yi1 = (yi0 + ri(-20, 21)).clamp(0, H - 1).contiguous()
+    nvalid = torch.randint(K // 4, K + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    args = (img0, img1, xi0, yi0, xi1, yi1, t, R, nvalid)
+    got = refine_cost_volume(*args)
+    ref = refine_cost_volume_plain(*args)
+    err = (got - ref).abs().max().item()
+    ok = err == 0.0
+    nv = int(nvalid.sum().item())
+    nbytes = 4 * (sum(min(H * W, int(v) * t * t) + min(H * W, int(v) * S * S) for v in nvalid.tolist())
+                  + 4 * B * K + B + B * K * n * n)
+    b_ms, b_by = bound(nbytes, nv * n * n * t * t * 3, F32_OPS)
+    return dict(
+        name="refine_cost", source="forest_slam_tpu_torch/csrc/refine_cost.cu",
+        replaces="forest_slam_tpu/frontend/pallas_refine.py:312", tolerance="exact (0)",
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda: refine_cost_volume(*args)),
+        plain_ms=time_ms(lambda: refine_cost_volume_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def render_clip(dev):
+    from forest_slam_tpu_torch.core.lie import se3_compose
+    from forest_slam_tpu_torch.io.synthetic import corridor_trajectory, default_rig, make_corridor_world, render_view
+
+    world = make_corridor_world(seed=0, device=dev)
+    rig = default_rig(H, W, baseline=0.25, device=dev)
+    Ts = corridor_trajectory(UNIQUE_FRAMES, speed=0.15, device=dev)
+    il, ir = [], []
+    for s in range(0, UNIQUE_FRAMES, 8):
+        T = Ts[s:s + 8]
+        il.append(render_view(world, T, rig.left.K, H, W)[0])
+        ir.append(render_view(world, se3_compose(T, rig.T_left_right), rig.left.K, H, W)[0])
+    il, ir = torch.cat(il), torch.cat(ir)
+    # ping-pong 0..U-1, U-2..1, ... so consecutive frames stay adjacent
+    period = np.concatenate([np.arange(UNIQUE_FRAMES), np.arange(UNIQUE_FRAMES - 2, 0, -1)])
+    idx = np.tile(period, -(-N_FRAMES // len(period)))[:N_FRAMES]
+    sel = torch.as_tensor(idx, device=dev)
+    return il[sel].contiguous(), ir[sel].contiguous(), Ts[sel], rig
+
+
+def ate(poses, gt):
+    from forest_slam_tpu_torch.eval.metrics import ape_translation
+    from forest_slam_tpu_torch.io.tum import Trajectory
+
+    ts = np.arange(gt.shape[0]) * 0.1
+    est = Trajectory.from_matrices(ts[1:], poses.double().cpu().numpy())
+    ref = Trajectory.from_matrices(ts, gt.double().cpu().numpy())
+    return ape_translation(est, ref, align=True, with_scale=False).rmse
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False; this smoke test needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "forest_slam_tpu_torch")):
+        print("FAIL: run from a checkout of the repository (forest_slam_tpu_torch/ is missing)",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    from forest_slam_tpu_torch import _build
+
+    t0 = time.time()
+    path = _build.build()
+    log(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s (cached={_build.last_build['cached']})")
+    for line in _build.last_build["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas: " + line.strip(), flush=True)
+
+    from forest_slam_tpu_torch.frontend.base import learned_frontend
+    from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer
+    from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume
+    from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode
+    from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo_device
+    from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows
+
+    fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev)
+    log(f"loaded {os.path.relpath(FLAGSHIP_PATH, ROOT)}: stem {fe.cfg.superpoint.stem_stride}, "
+        f"{fe.cfg.superglue.gnn_layers} GNN layers, {fe.cfg.superglue.sinkhorn_iterations} Sinkhorn iterations")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    results = []
+    with torch.no_grad():
+        for check in (lambda: check_sparse(dev, gen), lambda: check_gnn(dev, gen, fe),
+                      lambda: check_sinkhorn(dev, gen, fe), lambda: check_refine(dev, gen)):
+            r = check()
+            results.append(r)
+            log(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.6g} (tolerance {r['tolerance']}) "
+                f"{'PASS' if r['ok'] else 'FAIL'}; {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    bad = [r["name"] for r in results if not r["ok"]]
+    if bad:
+        print(f"FAIL: kernels disagree with their plain versions: {bad}", file=sys.stderr)
+        return 1
+
+    il, ir, gt, rig = render_clip(dev)
+    torch.cuda.synchronize()
+    log(f"rendered {UNIQUE_FRAMES} corridor frames at {W}x{H} on the card, ping-pong to {N_FRAMES} frames")
+
+    cfg = StereoConfig(n_hypotheses=1024, compose_mode="odometry", match_refine_radius=12)
+    frontend = learned_frontend(fe)
+    wrappers = {"sparse_cost": sparse_cost_rows, "gnn_layer": gnn_layer,
+                "sinkhorn_decode": sinkhorn_decode, "refine_cost": refine_cost_volume}
+
+    def drive(c, f):
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        torch.cuda.synchronize()
+        t = time.time()
+        out = run_stereo_vo_device(il, ir, rig, c, g, f, frame_batch=FRAME_BATCH, pair_batch=PAIR_BATCH)
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    _, t_cold = drive(cfg, frontend)
+    log(f"main path warm-up run: {t_cold:.2f} s")
+    for fn in wrappers.values():
+        fn.launches = 0
+    out, t_run = drive(cfg, frontend)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    n_pairs = N_FRAMES - 1
+    tracked = int(out.ok.sum().item())
+    err = ate(out.pose, gt)
+    finite = bool(torch.isfinite(out.pose).all().item()) and tuple(out.pose.shape) == (n_pairs, 4, 4)
+    log(f"main path: {tracked}/{n_pairs} pairs tracked, ATE {err:.4f} m, {n_pairs / t_run:.2f} pairs/s "
+        f"({t_run:.3f} s) on {torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
+
+    for r in results:
+        est = launches[r["name"]] * r["ms"] / 1e3
+        log(f"  {r['name']}: {launches[r['name']]} launches x {r['ms']:.4f} ms (kernel phase's shapes) "
+            f"= {est:.4f} s, {100 * est / t_run:.1f}% of the run")
+    plain_fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev,
+                                     superglue_overrides={"gnn_impl": "plain", "sinkhorn_impl": "plain"})
+    plain_cfg = cfg._replace(sparse=cfg.sparse._replace(cost_path="plain"), match_refine_cost_path="plain")
+    plain_out, t_plain = drive(plain_cfg, learned_frontend(plain_fe))
+    ok_agree = (plain_out.ok == out.ok).float().mean().item()
+    dpose = (plain_out.pose[:, :3, 3] - out.pose[:, :3, 3]).norm(dim=-1).max().item()
+    plain_ate = ate(plain_out.pose, gt)
+    log(f"plain path: {int(plain_out.ok.sum().item())}/{n_pairs} tracked, ATE {plain_ate:.4f} m, "
+        f"{t_plain:.3f} s; ok agreement {ok_agree:.3f}, largest position difference {dpose:.4f} m")
+
+    failures = []
+    if not finite:
+        failures.append("poses not finite or of the wrong shape")
+    if tracked < MIN_TRACKED * n_pairs:
+        failures.append(f"only {tracked}/{n_pairs} pairs tracked")
+    if not err < MAX_ATE_M:
+        failures.append(f"ATE {err} m >= {MAX_ATE_M} m")
+    zero = [k for k, v in launches.items() if v == 0]
+    if zero:
+        failures.append(f"kernels never launched on the main path: {zero}")
+    if failures:
+        print("FAIL: " + "; ".join(failures), file=sys.stderr)
+        return 1
+
+    kernels = []
+    for r in results:
+        kernels.append({k: r[k] for k in ("name", "source", "replaces")}
+                       | {"route": "cuda", "launches": launches[r["name"]]}
+                       | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    log("done")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

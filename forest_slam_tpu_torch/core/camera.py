@@ -1,0 +1,102 @@
+"""Pinhole camera with Brown-Conrady distortion (port of core/camera.py, the
+parts the slice uses). Point ops are batched over leading dims (..., N, 2/3).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class PinholeCamera(NamedTuple):
+    """Intrinsics + distortion: ``K`` (3, 3), ``dist`` (5,) [k1, k2, p1, p2, k3]."""
+
+    K: torch.Tensor
+    dist: torch.Tensor
+    width: int
+    height: int
+
+    @property
+    def fx(self):
+        return self.K[0, 0]
+
+    @property
+    def fy(self):
+        return self.K[1, 1]
+
+    @property
+    def cx(self):
+        return self.K[0, 2]
+
+    @property
+    def cy(self):
+        return self.K[1, 2]
+
+    @classmethod
+    def create(cls, K, dist=None, width: int = 0, height: int = 0, device="cuda",
+               dtype=torch.float32) -> "PinholeCamera":
+        K = torch.as_tensor(np.asarray(K, np.float64), dtype=dtype, device=device)
+        d = np.zeros(5, np.float64)
+        if dist is not None:
+            dist = np.asarray(dist, np.float64).reshape(-1)
+            d[: dist.shape[0]] = dist
+        return cls(K=K, dist=torch.as_tensor(d, dtype=dtype, device=device), width=width, height=height)
+
+
+class StereoRig(NamedTuple):
+    """``T_left_right`` maps right-camera coordinates into the left camera."""
+
+    left: PinholeCamera
+    right: PinholeCamera
+    T_left_right: torch.Tensor  # (4, 4)
+
+    @property
+    def baseline(self) -> torch.Tensor:
+        return torch.linalg.vector_norm(self.T_left_right[:3, 3])
+
+
+def distort_points(xn: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Brown-Conrady distortion of normalised points (..., 2)."""
+    k1, k2, p1, p2, k3 = dist.unbind(0)
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xy = x * y
+    xd = x * radial + 2.0 * p1 * xy + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * xy
+    return torch.stack([xd, yd], dim=-1)
+
+
+def undistort_points(pts: torch.Tensor, cam: PinholeCamera, iters: int = 5) -> torch.Tensor:
+    """Pixel points (..., 2) -> undistorted normalised points (..., 2)."""
+    c = torch.stack([cam.cx, cam.cy])
+    f = torch.stack([cam.fx, cam.fy])
+    xn = (pts - c) / f
+    x = xn
+    k1, k2, p1, p2, k3 = cam.dist.unbind(0)
+    for _ in range(iters):
+        xs, ys = x[..., 0], x[..., 1]
+        r2 = xs * xs + ys * ys
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * xs * ys + p2 * (r2 + 2.0 * xs * xs)
+        dy = p1 * (r2 + 2.0 * ys * ys) + 2.0 * p2 * xs * ys
+        x = (xn - torch.stack([dx, dy], dim=-1)) / radial[..., None]
+    return x
+
+
+def project_points(pts3d: torch.Tensor, cam: PinholeCamera, with_distortion: bool = True) -> torch.Tensor:
+    """Camera-frame points (..., 3) -> pixel coordinates (..., 2)."""
+    z = pts3d[..., 2:3]
+    xn = pts3d[..., :2] / torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    if with_distortion:
+        xn = distort_points(xn, cam.dist)
+    return xn * torch.stack([cam.fx, cam.fy]) + torch.stack([cam.cx, cam.cy])
+
+
+def backproject_depth(pts2d: torch.Tensor, depth: torch.Tensor, cam: PinholeCamera) -> torch.Tensor:
+    """Pixels (..., 2) + depths (...,) -> camera-frame points (..., 3)."""
+    x = (pts2d[..., 0] - cam.cx) / cam.fx * depth
+    y = (pts2d[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)

@@ -1,0 +1,144 @@
+"""One SuperGlue GNN layer for inference: the CUDA kernel and its plain
+version.
+
+Counterpart of frontend/pallas_gnn.py (``fused_gnn_layer``,
+``split_layer_params``). The kernel is ``csrc/gnn_layer.cu``;
+:func:`gnn_layer_plain` computes the same layer with tensor ops, casting to
+bf16 at the same points. :func:`gnn_layer` launches the kernel for CUDA
+tensors and takes the plain version only for CPU tensors.
+
+Weights come as the tuple :func:`split_layer_params` builds, the layout of
+the TPU kernel: per-head q/k/v kernels (h, D, dh) and biases (h, 1, dh),
+the merge kernel grouped by head (h, dh, D), MLP0 split into the rows acting
+on x and on the message (D, 2D) each, LayerNorm scale and bias in float32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from forest_slam_tpu_torch import _build
+
+NEG = -1e9
+LN_EPS = 1e-6  # flax.linen.LayerNorm default
+
+_BF = torch.bfloat16
+
+
+def split_layer_params(lp: dict, num_heads: int, device="cpu") -> tuple:
+    """GnnLayer parameter dict of numpy arrays (the Flax subtree
+    {attn: {q, k, v, merge}, mlp0, ln, mlp1}) -> kernel-layout tuple."""
+
+    def bf(a):
+        return torch.as_tensor(np.array(a, np.float32)).to(device=device, dtype=_BF).contiguous()
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32)).to(device=device).contiguous()
+
+    D = np.asarray(lp["attn"]["q"]["kernel"]).shape[0]
+    dh = D // num_heads
+
+    def qkv(name):
+        w = bf(lp["attn"][name]["kernel"]).reshape(D, num_heads, dh).permute(1, 0, 2)
+        b = bf(lp["attn"][name]["bias"]).reshape(num_heads, 1, dh)
+        return w.contiguous(), b.contiguous()
+
+    wq, bq = qkv("q")
+    wk, bk = qkv("k")
+    wv, bv = qkv("v")
+    wm = bf(lp["attn"]["merge"]["kernel"]).reshape(num_heads, dh, D).contiguous()
+    bm = bf(lp["attn"]["merge"]["bias"]).reshape(1, D)
+    w0 = bf(lp["mlp0"]["kernel"])  # (2D, 2D)
+    w0a, w0b = w0[:D].contiguous(), w0[D:].contiguous()
+    b0 = bf(lp["mlp0"]["bias"]).reshape(1, 2 * D)
+    lns = f32(lp["ln"]["scale"]).reshape(1, 2 * D)
+    lnb = f32(lp["ln"]["bias"]).reshape(1, 2 * D)
+    w1 = bf(lp["mlp1"]["kernel"])  # (2D, D)
+    b1 = bf(lp["mlp1"]["bias"]).reshape(1, D)
+    return (wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1)
+
+
+def _mm(a, b):
+    """float32 product of bf16 operands (exact products, float32 sums)."""
+    return a.float() @ b.float()
+
+
+def _bf(x):
+    return x.to(_BF)
+
+
+def gnn_layer_plain(x, src, src_mask, weights: tuple, num_heads: int):
+    """(N, K, D) bf16 -> (N, K, D) bf16: one GNN layer, the TPU kernel's
+    numerics (f32 logits and softmax, bf16 probabilities and messages)."""
+    wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1 = weights
+    x = _bf(x)
+    src = _bf(src)
+    D = x.shape[-1]
+    dh = D // num_heads
+    scale = 1.0 / dh ** 0.5
+    m = src_mask.float()[:, None, :]  # (N, 1, S)
+    merged = torch.zeros(x.shape[:-1] + (D,), dtype=torch.float32, device=x.device)
+    for h in range(num_heads):
+        qh = _bf(_bf(_mm(x, wq[h])).float() + bq[h].float())
+        kh = _bf(_bf(_mm(src, wk[h])).float() + bk[h].float())
+        vh = _bf(_bf(_mm(src, wv[h])).float() + bv[h].float())
+        logits = _mm(qh, kh.transpose(-1, -2)) * scale
+        logits = torch.where(m > 0.5, logits, torch.full_like(logits, NEG))
+        logits = logits - logits.max(dim=-1, keepdim=True).values
+        p = torch.exp(logits)
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        oh = _bf(_mm(_bf(p), vh))
+        merged = merged + _mm(oh, wm[h])
+    merged = _bf(_bf(merged).float() + bm.float())
+    y = _bf(_bf(_mm(x, w0a) + _mm(merged, w0b)).float() + b0.float())
+    yf = y.float()
+    mu = yf.mean(dim=-1, keepdim=True)
+    var = ((yf - mu) * (yf - mu)).mean(dim=-1, keepdim=True)
+    yn = (yf - mu) * torch.rsqrt(var + LN_EPS) * lns + lnb
+    yr = _bf(torch.clamp(yn, min=0.0))
+    delta = _bf(_bf(_mm(yr, w1)).float() + b1.float())
+    return _bf(x.float() + delta.float())
+
+
+def gnn_layer(x, src, src_mask, weights: tuple, num_heads: int):
+    """One GNN layer on (N, K, D) bf16 queries and (N, S, D) bf16 sources
+    with an (N, S) bool source mask: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gnn_layer_plain(x, src, src_mask, weights, num_heads)
+    if x.dim() != 3 or src.dim() != 3 or x.shape[0] != src.shape[0] or x.shape[2] != src.shape[2]:
+        raise ValueError(f"gnn_layer needs (N, K, D) and (N, S, D); got {tuple(x.shape)}, {tuple(src.shape)}")
+    N, K, D = x.shape
+    S = src.shape[1]
+    if D % num_heads or D // num_heads != 64:
+        raise ValueError(f"the gnn_layer kernel takes 64-wide heads; got D={D}, heads={num_heads}")
+    if src_mask.shape != (N, S):
+        raise ValueError(f"src_mask must be (N, S); got {tuple(src_mask.shape)}")
+    dev = x.device
+    for t in (x, src, *weights):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("gnn_layer inputs and weights must be contiguous on one device")
+    if x.dtype != _BF or src.dtype != _BF:
+        raise ValueError(f"gnn_layer takes bf16 activations; got {x.dtype}, {src.dtype}")
+    wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1 = weights
+    mask = src_mask.float().contiguous()
+    bf = dict(dtype=_BF, device=dev)
+    qs = torch.empty((N * K, D), **bf)
+    ks = torch.empty((N * S, D), **bf)
+    vs = torch.empty((N * S, D), **bf)
+    os_ = torch.empty((N * K, D), **bf)
+    ms = torch.empty((N * K, D), **bf)
+    ys = torch.empty((N * K, 2 * D), **bf)
+    yr = torch.empty((N * K, 2 * D), **bf)
+    out = torch.empty((N, K, D), **bf)
+    ptrs = [t.data_ptr() for t in (x, src, mask, wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0,
+                                   lns, lnb, w1, b1, qs, ks, vs, os_, ms, ys, yr, out)]
+    fn = _build.function("fs_gnn_layer", *[_build.P] * 26, *[_build.I] * 5, _build.P)
+    rc = fn(*ptrs, N, K, S, D, num_heads, _build.stream_ptr(dev))
+    _build.check("fs_gnn_layer", rc)
+    gnn_layer.launches += 1
+    return out
+
+
+gnn_layer.launches = 0

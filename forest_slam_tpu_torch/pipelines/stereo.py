@@ -1,0 +1,176 @@
+"""Stereo visual odometry, frame-parallel (port of pipelines/stereo.py's
+device runner).
+
+Three phases over a stereo sequence (N, H, W):
+
+1. per frame, in batches: features + per-keypoint sparse stereo depth;
+2. per pair, in batches: temporal match, SAD refinement of the
+   observations, PnP-RANSAC and the acceptance gate;
+3. chaining of the gated relative poses and world-frame map points.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from forest_slam_tpu_torch.core.camera import StereoRig, backproject_depth
+from forest_slam_tpu_torch.core.lie import mm, se3_chain, se3_inverse, se3_matrix
+from forest_slam_tpu_torch.frontend.base import FrontendFns
+from forest_slam_tpu_torch.frontend.refine import RefineConfig, refine_matches_quality
+from forest_slam_tpu_torch.geometry.pnp import solve_pnp_ransac
+from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig, sparse_depth_at_keypoints
+
+
+class StereoConfig(NamedTuple):
+    sparse: SparseStereoConfig = SparseStereoConfig()
+    reproj_threshold_px: float = 1.0
+    n_hypotheses: int = 1024
+    min_points: int = 6
+    # pose acceptance: inliers >= ratio * valid inputs (-1: 0.0 under
+    # "parity", 0.15 under "odometry"), or >= min_inliers_absolute when a
+    # ratio gate is in force
+    min_inlier_ratio: float = -1.0
+    min_inliers_absolute: int = 12
+    refine_iters: int = 8
+    compose_mode: str = "parity"
+    min_depth: float = 0.1
+    max_depth: float = 1000.0
+    # SAD refinement of the observations (0 = off); refinement failures
+    # leave the PnP input set and its quality biases the RANSAC draws
+    match_refine_radius: int = 0
+    match_refine_cost_path: str = "auto"
+
+
+class StereoStepOut(NamedTuple):
+    pose: torch.Tensor  # (N-1, 4, 4) cumulative
+    map_points: torch.Tensor  # (N-1, K, 3) world-frame points
+    map_valid: torch.Tensor  # (N-1, K) bool
+    n_matches: torch.Tensor
+    n_inliers: torch.Tensor
+    ok: torch.Tensor
+
+
+class PairVO(NamedTuple):
+    """Frame-to-frame VO of a batch of pairs (no chaining)."""
+
+    rel: torch.Tensor  # (P, 4, 4) gated relative transforms
+    ok: torch.Tensor  # (P,)
+    n_matches: torch.Tensor  # (P,)
+    n_inliers: torch.Tensor  # (P,)
+    pts3d: torch.Tensor  # (P, K, 3) previous-frame camera points
+    valid: torch.Tensor  # (P, K) PnP input validity
+    matches: torch.Tensor  # (P, K) previous -> current keypoint or -1
+    obs: torch.Tensor  # (P, K, 2) current-frame observations fed to PnP
+
+
+class FrameSlab(NamedTuple):
+    feats: Any  # features, leading axis = frames
+    z: torch.Tensor  # (N, K) per-keypoint depth
+    z_ok: torch.Tensor  # (N, K) validity
+
+
+def _map(fn, tup):
+    return type(tup)(*(fn(a) for a in tup))
+
+
+def _cat(parts):
+    return type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+def frame_features(images_l, images_r, rig: StereoRig, cfg: StereoConfig, frontend: FrontendFns):
+    """Features + per-keypoint depth for a batch of frames (B, H, W)."""
+    feats = frontend.extract(images_l)
+    z, z_ok = sparse_depth_at_keypoints(images_l, images_r, feats.xy, rig.left.fx, rig.baseline, cfg.sparse)
+    return feats, z, z_ok
+
+
+def match_and_pnp(prev_feats, pts3d, depth_ok, cur_feats, rig: StereoRig, cfg: StereoConfig,
+                  frontend: FrontendFns, image_shape, img_prev=None, img_cur=None,
+                  generator: torch.Generator | None = None, gumbel=None, uniform=None) -> PairVO:
+    """Temporal match -> (refinement) -> PnP-RANSAC -> gated relative pose,
+    for a batch of pairs."""
+    matches = frontend.match(prev_feats, cur_feats, image_shape)
+    mask = matches >= 0
+    idx = torch.where(mask, matches, torch.zeros_like(matches)).long()
+    valid = mask & depth_ok & prev_feats.valid
+    obs = cur_feats.xy.gather(1, idx[..., None].expand(-1, -1, 2))
+    weights = None
+    if cfg.match_refine_radius > 0 and img_prev is not None:
+        obs, ok_r, quality = refine_matches_quality(
+            img_prev, img_cur, prev_feats.xy, obs, valid,
+            RefineConfig(radius=cfg.match_refine_radius, cost_path=cfg.match_refine_cost_path),
+        )
+        valid = valid & ok_r
+        # floor so no valid point is unsampleable on a flat valley
+        weights = torch.clamp(quality, min=0.05)
+    pnp = solve_pnp_ransac(
+        pts3d, obs, valid, rig.left, generator=generator,
+        reproj_threshold=cfg.reproj_threshold_px, n_hypotheses=cfg.n_hypotheses,
+        min_inliers=cfg.min_points, refine_iters=cfg.refine_iters, weights=weights,
+        gumbel=gumbel, uniform=uniform,
+    )
+    n_valid = valid.sum(-1)
+    ratio = cfg.min_inlier_ratio
+    if ratio < 0:
+        ratio = 0.0 if cfg.compose_mode == "parity" else 0.15
+    ratio_ok = pnp.n_inliers >= ratio * torch.clamp(n_valid, min=1)
+    if cfg.min_inliers_absolute > 0 and ratio > 0:
+        ratio_ok = ratio_ok | (pnp.n_inliers >= cfg.min_inliers_absolute)
+    ok = pnp.ok & (n_valid >= cfg.min_points) & ratio_ok
+    rel = se3_matrix(pnp.R, pnp.t)
+    if cfg.compose_mode == "odometry":
+        rel = se3_inverse(rel)
+    rel = torch.where(ok[:, None, None], rel, torch.eye(4, device=rel.device).expand_as(rel))
+    return PairVO(rel=rel, ok=ok, n_matches=mask.sum(-1), n_inliers=pnp.n_inliers, pts3d=pts3d,
+                  valid=valid, matches=matches, obs=obs)
+
+
+def pair_from_slab(pf, pz, pok, cf, rig, cfg, frontend, image_shape, img_prev=None, img_cur=None,
+                   generator=None, gumbel=None, uniform=None) -> PairVO:
+    """VO of a batch of pairs from per-keypoint slab entries."""
+    pts3d = backproject_depth(pf.xy, pz, rig.left)
+    depth_ok = pok & (pz > cfg.min_depth) & (pz < cfg.max_depth)
+    return match_and_pnp(pf, pts3d, depth_ok, cf, rig, cfg, frontend, image_shape, img_prev, img_cur,
+                         generator, gumbel, uniform)
+
+
+def chain_and_map(pairs: PairVO, initial: torch.Tensor) -> StereoStepOut:
+    """Pose chaining + world-frame map points."""
+    cums = se3_chain(pairs.rel, initial=initial)
+    world = mm(pairs.pts3d, cums[:, :3, :3].transpose(1, 2)) + cums[:, None, :3, 3]
+    return StereoStepOut(
+        pose=cums,
+        map_points=world,
+        map_valid=pairs.valid & pairs.ok[:, None],
+        n_matches=pairs.n_matches,
+        n_inliers=pairs.n_inliers,
+        ok=pairs.ok,
+    )
+
+
+@torch.no_grad()
+def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, generator: torch.Generator,
+                         frontend: FrontendFns, frame_batch: int = 8, pair_batch: int = 8) -> StereoStepOut:
+    """Whole-sequence VO of (N, H, W) stereo stacks in [0, 255]: frames
+    1..N-1 relative to frame 0. Batch loops stand in for the JAX runner's
+    ``lax.map``; the PnP draws come from ``generator``."""
+    n = images_l.shape[0]
+    image_shape = tuple(images_l.shape[1:])
+    parts = [frame_features(images_l[s:s + frame_batch], images_r[s:s + frame_batch], rig, cfg, frontend)
+             for s in range(0, n, frame_batch)]
+    feats = _cat([p[0] for p in parts])
+    slab = FrameSlab(feats, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts]))
+    refine = cfg.match_refine_radius > 0
+    outs = []
+    for s in range(0, n - 1, pair_batch):
+        e = min(s + pair_batch, n - 1)
+        prev = FrameSlab(_map(lambda a: a[s:e], feats), slab.z[s:e], slab.z_ok[s:e])
+        cur = _map(lambda a: a[s + 1:e + 1], feats)
+        outs.append(pair_from_slab(
+            prev.feats, prev.z, prev.z_ok, cur, rig, cfg, frontend, image_shape,
+            images_l[s:e] if refine else None, images_l[s + 1:e + 1] if refine else None,
+            generator=generator,
+        ))
+    return chain_and_map(_cat(outs), torch.eye(4, device=images_l.device))

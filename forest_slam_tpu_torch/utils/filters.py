@@ -1,0 +1,50 @@
+"""Separable image filters (port of utils/filters.py, the parts the slice uses).
+
+Filters are written as sums of shifted slices rather than float32
+convolutions, so no TF32 rounding can enter on the card whatever
+``torch.backends.cudnn.allow_tf32`` says.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _filter1d(img: torch.Tensor, k: torch.Tensor, dim: int) -> torch.Tensor:
+    """SAME cross-correlation of (..., H, W) with a 1D odd kernel along
+    ``dim`` (-2 rows, -1 cols); zero padding."""
+    n = k.shape[0]
+    r = n // 2
+    pad = (r, r, 0, 0) if dim == -1 else (0, 0, r, r)
+    p = F.pad(img, pad)
+    size = img.shape[dim]
+    out = None
+    for i in range(n):
+        tap = p.narrow(dim, i, size) * k[i]
+        out = tap if out is None else out + tap
+    return out
+
+
+def conv2d_separable(img: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor) -> torch.Tensor:
+    """Separable SAME convolution of (..., H, W): rows with ``ky`` then
+    columns with ``kx`` (the JAX helper's order)."""
+    kx = torch.as_tensor(kx, dtype=torch.float32, device=img.device)
+    ky = torch.as_tensor(ky, dtype=torch.float32, device=img.device)
+    return _filter1d(_filter1d(img.float(), ky, -2), kx, -1)
+
+
+def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sobel gradients (dx, dy) with OpenCV's 3x3 kernels."""
+    deriv = [-1.0, 0.0, 1.0]
+    smooth = [1.0, 2.0, 1.0]
+    return conv2d_separable(img, deriv, smooth), conv2d_separable(img, smooth, deriv)
+
+
+def maxpool2d_same(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Max over a size x size window centred on each pixel of (..., H, W)
+    (padding never wins)."""
+    r = size // 2
+    shape = img.shape
+    x = img.reshape(-1, 1, shape[-2], shape[-1])
+    return F.max_pool2d(x, size, stride=1, padding=r).reshape(shape)

@@ -1,0 +1,100 @@
+"""Lie and camera functions of the port against the JAX package in float64.
+
+Same numpy inputs on both sides; JAX runs with 64-bit enabled inside each
+test. Tolerance 1e-12 absolute: the formulas are the same, so only float64
+rounding of differently ordered sums may differ.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+def enable_x64():
+    return jax.enable_x64(True)
+
+from forest_slam_tpu.core import camera as jcam
+from forest_slam_tpu.core import lie as jlie
+from forest_slam_tpu_torch.core import camera as tcam
+from forest_slam_tpu_torch.core import lie as tlie
+
+TOL = 1e-12
+
+
+def _poses(rng, n):
+    xi = rng.normal(size=(n, 6)) * np.array([1, 1, 1, 0.5, 0.5, 0.5])
+    with enable_x64():
+        return np.asarray(jlie.se3_exp(jnp.asarray(xi))), xi
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a), dtype=torch.float64)
+
+
+def test_se3_exp_matrix_inverse_compose(rng):
+    T, xi = _poses(rng, 8)
+    with enable_x64():
+        np.testing.assert_allclose(tlie.se3_exp(_t(xi)).numpy(), T, atol=TOL)
+        R, t = T[:, :3, :3], T[:, :3, 3]
+        np.testing.assert_allclose(tlie.se3_matrix(_t(R), _t(t)).numpy(),
+                                   np.asarray(jlie.se3_matrix(jnp.asarray(R), jnp.asarray(t))), atol=TOL)
+        np.testing.assert_allclose(tlie.se3_inverse(_t(T)).numpy(),
+                                   np.asarray(jlie.se3_inverse(jnp.asarray(T))), atol=TOL)
+        np.testing.assert_allclose(tlie.se3_compose(_t(T[:4]), _t(T[4:])).numpy(),
+                                   np.asarray(jlie.se3_compose(jnp.asarray(T[:4]), jnp.asarray(T[4:]))), atol=TOL)
+
+
+def test_se3_exp_small_angle_branch():
+    xi = np.array([[0.1, -0.2, 0.3, 1e-6, -2e-6, 3e-6], [0.0] * 6])
+    with enable_x64():
+        np.testing.assert_allclose(tlie.se3_exp(_t(xi)).numpy(), np.asarray(jlie.se3_exp(jnp.asarray(xi))), atol=TOL)
+
+
+def test_se3_chain_prefix_product(rng):
+    T, _ = _poses(rng, 7)
+    init = T[0]
+    with enable_x64():
+        ref = np.asarray(jlie.se3_chain(jnp.asarray(T[1:]), initial=jnp.asarray(init)))
+        np.testing.assert_allclose(tlie.se3_chain(_t(T[1:]), initial=_t(init)).numpy(), ref, atol=1e-11)
+        ref0 = np.asarray(jlie.se3_chain(jnp.asarray(T)))
+        np.testing.assert_allclose(tlie.se3_chain(_t(T)).numpy(), ref0, atol=1e-11)
+
+
+def test_so3_orthonormalize(rng):
+    T, _ = _poses(rng, 5)
+    R = T[:, :3, :3] + rng.normal(size=(5, 3, 3)) * 1e-2
+    with enable_x64():
+        np.testing.assert_allclose(tlie.so3_orthonormalize(_t(R)).numpy(),
+                                   np.asarray(jlie.so3_orthonormalize(jnp.asarray(R))), atol=TOL)
+
+
+def _cams(dist):
+    K = np.array([[640.0, 0, 479.5], [0, 645.0, 299.5], [0, 0, 1]])
+    with enable_x64():
+        jc = jcam.PinholeCamera(K=jnp.asarray(K), dist=jnp.asarray(dist), width=960, height=600)
+    tc = tcam.PinholeCamera(K=_t(K), dist=_t(dist), width=960, height=600)
+    return jc, tc
+
+
+@pytest.mark.parametrize("dist", [[0.0] * 5, [-0.05, 0.01, 1e-3, -2e-3, 1e-4]])
+def test_project_undistort_backproject(rng, dist):
+    jc, tc = _cams(np.asarray(dist))
+    pts = np.column_stack([rng.uniform(-3, 3, 50), rng.uniform(-2, 2, 50), rng.uniform(2, 30, 50)])
+    with enable_x64():
+        ref = np.asarray(jcam.project_points(jnp.asarray(pts), jc))
+        got = tcam.project_points(_t(pts), tc).numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-9)
+        np.testing.assert_allclose(tcam.undistort_points(_t(ref), tc).numpy(),
+                                   np.asarray(jcam.undistort_points(jnp.asarray(ref), jc)), atol=TOL)
+        z = pts[:, 2]
+        np.testing.assert_allclose(tcam.backproject_depth(_t(ref), _t(z), tc).numpy(),
+                                   np.asarray(jcam.backproject_depth(jnp.asarray(ref), jnp.asarray(z), jc)), atol=1e-9)
+
+
+def test_stereo_rig_baseline():
+    T = np.eye(4)
+    T[0, 3] = 0.25
+    _, tc = _cams(np.zeros(5))
+    rig = tcam.StereoRig(tc, tc, _t(T))
+    assert float(rig.baseline) == 0.25

@@ -1,0 +1,87 @@
+"""Kernels of the port against their plain versions on a CUDA card.
+
+Marked ``cuda``: each test decides in the ``cuda`` fixture whether a card is
+present and skips with a reason where there is none (the CPU run). On the
+card: ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
+chip_smoke.py: integer-valued images make the SAD kernels exact; the GNN
+layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4.
+"""
+
+import pytest
+import torch
+
+from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain, split_layer_params
+from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
+from forest_slam_tpu_torch.stereo.sparse import prefilter
+from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs on the H100)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return torch.device("cuda"), g
+
+
+def test_sparse_cost_kernel(cuda):
+    dev, g = cuda
+    imgs = torch.randint(0, 256, (2, 3, 120, 200), generator=g, device=dev).float()
+    pl, pr = prefilter(imgs[0], 31.0).contiguous(), prefilter(imgs[1], 31.0).contiguous()
+    xi = torch.randint(-5, 205, (3, 300), generator=g, device=dev, dtype=torch.int32)
+    yi = torch.randint(-5, 125, (3, 300), generator=g, device=dev, dtype=torch.int32)
+    n = sparse_cost_rows.launches
+    got = sparse_cost_rows(pl, pr, xi, yi, 48, 7)
+    assert sparse_cost_rows.launches == n + 1
+    torch.testing.assert_close(got, sparse_cost_rows_plain(pl, pr, xi, yi, 48, 7), rtol=0, atol=0)
+
+
+def test_refine_cost_kernel(cuda):
+    dev, g = cuda
+    imgs = torch.randint(0, 256, (2, 3, 100, 140), generator=g, device=dev).float()
+    ri = lambda hi: torch.randint(0, hi, (3, 200), generator=g, device=dev, dtype=torch.int32)
+    nvalid = torch.tensor([0, 77, 200], dtype=torch.int32, device=dev)
+    args = (imgs[0].contiguous(), imgs[1].contiguous(), ri(140), ri(100), ri(140), ri(100), 8, 12, nvalid)
+    torch.testing.assert_close(refine_cost_volume(*args), refine_cost_volume_plain(*args), rtol=0, atol=0)
+
+
+def test_sinkhorn_kernel(cuda):
+    dev, g = cuda
+    s = (torch.randn((3, 200, 170), generator=g, device=dev) * 1.5).contiguous()
+    v0 = torch.rand((3, 200), generator=g, device=dev) < 0.8
+    v1 = torch.rand((3, 170), generator=g, device=dev) < 0.8
+    got = sinkhorn_decode(s, v0, v1, torch.tensor(1.3, device=dev), 20)
+    ref = sinkhorn_decode_plain(s, v0, v1, torch.tensor(1.3, device=dev), 20)
+    assert (got[0] == ref[0]).float().mean() > 0.99 and (got[2] == ref[2]).float().mean() > 0.99
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-4)
+
+
+def test_gnn_layer_kernel(cuda):
+    import numpy as np
+
+    dev, g = cuda
+    rng = np.random.default_rng(0)
+    D = 256
+    lp = {
+        "attn": {n: {"kernel": rng.normal(size=(D, D)) * 0.06, "bias": rng.normal(size=D) * 0.1}
+                 for n in ("q", "k", "v", "merge")},
+        "mlp0": {"kernel": rng.normal(size=(2 * D, 2 * D)) * 0.04, "bias": rng.normal(size=2 * D) * 0.1},
+        "ln": {"scale": 1 + rng.normal(size=2 * D) * 0.1, "bias": rng.normal(size=2 * D) * 0.1},
+        "mlp1": {"kernel": rng.normal(size=(2 * D, D)) * 0.04, "bias": rng.normal(size=D) * 0.1},
+    }
+    ws = split_layer_params(lp, 4, device=dev)
+    x = torch.randn((4, 150, D), generator=g, device=dev).to(torch.bfloat16)
+    src = torch.randn((4, 130, D), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.rand((4, 130), generator=g, device=dev) < 0.7
+    got = gnn_layer(x, src, mask, ws, 4).float()
+    ref = gnn_layer_plain(x, src, mask, ws, 4).float()
+    scale = max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() <= 0.05 * scale
+    assert (got - ref).abs().mean().item() <= 2e-3 * scale

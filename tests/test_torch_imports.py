@@ -1,0 +1,90 @@
+"""Guards of the PyTorch/CUDA port.
+
+- No module of forest_slam_tpu_torch, and not chip_smoke.py, imports jax,
+  flax, msgpack, cv2 or the JAX package (checked in a fresh interpreter).
+- chip_smoke.py fails, and prints no result line, where there is no CUDA
+  card, and where it stands alone in a directory.
+- The kernel build reports nvcc's own output when nvcc fails, and leaves no
+  partial library behind.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "cv2", "forest_slam_tpu")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+import forest_slam_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(forest_slam_tpu_torch.__path__, "forest_slam_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    return env
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 25
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env={**_env(), "PYTHONPATH": ""},
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the smoke test would run")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_build_failure_reports_nvcc_output(tmp_path, monkeypatch):
+    from forest_slam_tpu_torch import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: simulated compiler failure' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="simulated compiler failure"):
+        _build.build()
+    assert os.listdir(tmp_path / "build") == []
+
+
+def test_library_name_follows_sources_and_flags(monkeypatch):
+    from forest_slam_tpu_torch import _build
+
+    a = _build.library_path()
+    assert a == _build.library_path()
+    assert len(_build.sources()) == 4
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DEXTRA",))
+    assert _build.library_path() != a

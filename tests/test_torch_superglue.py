@@ -1,0 +1,124 @@
+"""SuperGlue pieces of the port against the JAX package.
+
+- GNN layer: the plain version against ``fused_gnn_layer(interpret=True)``
+  at K=128 with the flagship's weights. Both cast to bf16 at the same
+  points; sums differ in order, so a bf16 output may differ by a rounding:
+  max error within 2% of the output range, mean within 1e-3.
+- Sinkhorn: the plain exp-domain decode against
+  ``sinkhorn_decode(interpret=True)``: indices equal, scores within 1e-5
+  (float32 sums in another order); the port's log-domain pair against the
+  JAX log_sinkhorn + match_from_couplings likewise.
+- The whole matcher forward (2 of the flagship's 9 layer pairs, K=128)
+  against ``superglue_forward_fused(interpret=True)``: at least 97% of
+  ``matches0`` equal (bf16 roundings may flip near-tie assignments).
+"""
+
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+import jax
+import jax.numpy as jnp
+
+from forest_slam_tpu.frontend.pallas_gnn import fused_gnn_layer, split_layer_params as jsplit
+from forest_slam_tpu.frontend.pallas_gnn import superglue_forward_fused
+from forest_slam_tpu.frontend.pallas_sinkhorn import sinkhorn_decode as jsinkhorn_decode
+from forest_slam_tpu.frontend.superglue import SuperGlueConfig as JSGConfig
+from forest_slam_tpu.frontend.superglue import log_sinkhorn as jlog_sinkhorn
+from forest_slam_tpu.frontend.superglue import match_from_couplings as jmatch_from_couplings
+from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain, split_layer_params
+from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
+from forest_slam_tpu_torch.frontend.superglue import SuperGlueConfig, log_sinkhorn, match_decode, match_from_couplings
+from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, read_checkpoint, superglue_from_jax
+
+K = 128
+
+
+@pytest.fixture(scope="module")
+def sg_params():
+    return serialization.msgpack_restore(open(FLAGSHIP_PATH, "rb").read())["params"]["superglue"]["params"]
+
+
+def test_gnn_layer_plain_matches_pallas_interpret(sg_params, rng):
+    B, D = 2, 256
+    x = rng.normal(size=(B, K, D)).astype(np.float32)
+    src = rng.normal(size=(B, K, D)).astype(np.float32)
+    mask = rng.random((B, K)) > 0.3
+    lp = sg_params["cross_3"]
+    ref = np.asarray(fused_gnn_layer(jnp.asarray(x, jnp.bfloat16), jnp.asarray(src, jnp.bfloat16),
+                                     jnp.asarray(mask), jsplit(lp, 4), 4, interpret=True), np.float32)
+    ws = split_layer_params(lp, 4)
+    tx = torch.as_tensor(x).to(torch.bfloat16)
+    ts = torch.as_tensor(src).to(torch.bfloat16)
+    got = gnn_layer_plain(tx, ts, torch.as_tensor(mask), ws, 4).float().numpy()
+    scale = max(1.0, np.abs(ref).max())
+    assert np.abs(got - ref).max() / scale < 0.02, np.abs(got - ref).max()
+    assert np.abs(got - ref).mean() < 1e-3
+    wrapped = gnn_layer(tx, ts, torch.as_tensor(mask), ws, 4).float().numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+
+def _scores(rng, B=2, K0=K, K1=K):
+    s = rng.normal(size=(B, K0, K1)).astype(np.float32) * 1.5 + 6.0 * np.eye(K0, K1, dtype=np.float32)
+    v0 = np.arange(K0)[None] < np.array([100, K0])[:, None]
+    v1 = np.arange(K1)[None] < np.array([90, K1])[:, None]
+    return s, v0, v1, np.float32(1.3)
+
+
+def test_sinkhorn_plain_matches_pallas_interpret(rng):
+    s, v0, v1, alpha = _scores(rng)
+    ref = jsinkhorn_decode(jnp.asarray(s), jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(alpha), 20, True)
+    args = (torch.as_tensor(s), torch.as_tensor(v0), torch.as_tensor(v1), torch.tensor(alpha), 20)
+    got = sinkhorn_decode_plain(*args)
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        if r.dtype.kind == "i":
+            np.testing.assert_array_equal(g.numpy(), r)
+        else:
+            np.testing.assert_allclose(g.numpy(), r, atol=1e-5)
+    for g, w in zip(got, sinkhorn_decode(*args)):
+        np.testing.assert_array_equal(w.numpy(), g.numpy())
+
+
+def test_log_sinkhorn_and_decode_match(rng):
+    s, v0, v1, alpha = _scores(rng)
+    jl = jlog_sinkhorn(jnp.asarray(s), jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(alpha), 20)
+    tl = log_sinkhorn(torch.as_tensor(s), torch.as_tensor(v0), torch.as_tensor(v1), torch.tensor(alpha), 20)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-3, rtol=1e-5)
+    jm = jmatch_from_couplings(jl, jnp.asarray(v0), jnp.asarray(v1), 0.2)
+    tm = match_from_couplings(tl, torch.as_tensor(v0), torch.as_tensor(v1), 0.2)
+    np.testing.assert_array_equal(tm.matches0.numpy(), np.asarray(jm.matches0))
+    np.testing.assert_array_equal(tm.matches1.numpy(), np.asarray(jm.matches1))
+    np.testing.assert_allclose(tm.matching_scores0.numpy(), np.asarray(jm.matching_scores0), atol=1e-5)
+    # the exp-domain decode reaches the same matches
+    te = match_decode(torch.as_tensor(s), torch.as_tensor(v0), torch.as_tensor(v1), torch.tensor(alpha), 20, 0.2)
+    np.testing.assert_array_equal(te.matches0.numpy(), np.asarray(jm.matches0))
+    np.testing.assert_allclose(te.matching_scores1.numpy(), np.asarray(jm.matching_scores1), atol=1e-5)
+
+
+def test_superglue_forward_matches_fused_interpret(sg_params):
+    """Flagship matcher on SuperPoint features of two rendered frames."""
+    from forest_slam_tpu.io.synthetic import render_sequence
+    from forest_slam_tpu_torch.frontend.superpoint import SuperPointConfig, select_keypoints
+    from forest_slam_tpu_torch.frontend.weights import superpoint_from_jax
+
+    H, W = 160, 224
+    seq = render_sequence(n_frames=2, height=H, width=W, seed=3, speed=0.15)
+    imgs = torch.as_tensor(np.array(seq.images_left, np.float32))
+    _, tree = read_checkpoint(FLAGSHIP_PATH)
+    spcfg = SuperPointConfig(stem_stride=4, max_keypoints=K, dtype=torch.float32)
+    with torch.no_grad():
+        raw = superpoint_from_jax(tree["superpoint"]["params"], spcfg)(imgs / 255.0)
+        f = select_keypoints(raw.heat, raw.coarse_desc, spcfg)
+    args = [a[i:i + 1].numpy() for i in (0, 1) for a in f]
+    ref = superglue_forward_fused({"params": sg_params}, JSGConfig(sinkhorn_impl="xla"),
+                                  *map(jnp.asarray, args), (H, W), interpret=True)
+    sg = superglue_from_jax(sg_params, SuperGlueConfig())
+    with torch.no_grad():
+        got = sg(*map(torch.as_tensor, args), (H, W))
+    jm = np.asarray(ref.matches0)
+    assert (jm >= 0).sum() > 50
+    assert (got.matches0.numpy() == jm).mean() >= 0.97
+    ok = (got.matches0.numpy() == jm) & (jm >= 0)
+    np.testing.assert_allclose(got.matching_scores0.numpy()[ok], np.asarray(ref.matching_scores0)[ok], atol=0.05)
