@@ -11,12 +11,20 @@ Phases, each printing one line with its elapsed seconds:
    limit and the TF32 settings it pins;
 2. build: compiles the CUDA kernels from ``forest_slam_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes, with its stated tolerance, its time, the plain version's
-   time and its bound;
-4. main path: renders a 960x600 corridor clip on the card, loads the flagship
-   checkpoint and runs stereo VO (K=1024, refine radius 12, 1024 DLT-6
-   hypotheses) through the kernels, counting their launches; then the same
-   frames through the plain versions for comparison.
+   paths' shapes, with its stated tolerance, its time, the plain version's
+   time and its bound (the detection kernel at all eight pyramid levels of a
+   960x600 frame, a batch of 8 frames each);
+4. ORB path: renders a 960x600 corridor clip on the card and runs stereo VO
+   through ``run_stereo_vo`` with its default ORB front end (512 features,
+   8 levels, Hamming distance <= 64, 1024 DLT-6 hypotheses, no refinement),
+   counting the kernels' launches; then the same frames through the plain
+   versions, which must track the same pairs;
+5. learned path: loads the flagship checkpoint and runs stereo VO (K=1024,
+   refine radius 12, 1024 DLT-6 hypotheses) on the same clip through the
+   kernels, counting their launches; then the same frames through the plain
+   versions for comparison.
+
+Each path starts with every launch count at 0 and reads them when it ends.
 
 The last line is a JSON object {"ok": true, "device": {...}}; any failure
 exits non-zero before it is printed.
@@ -46,6 +54,8 @@ UNIQUE_FRAMES = 16
 N_FRAMES = 32
 H, W = 600, 960
 K = 1024
+ORB_FEATURES = 512
+ORB_LEVELS = 8
 FRAME_BATCH = 8
 PAIR_BATCH = 8
 MIN_TRACKED = 0.9
@@ -205,6 +215,63 @@ def check_refine(dev, gen):
     )
 
 
+# float32 operations of the detection kernel (csrc/detect.cu), as its data
+# gates them. Every pixel of a level: Sobel, scaling and the three products
+# (13), the box sums over rows (18), the cell reduction (1). Every pixel
+# inside the edge margin: FAST's 16 differences, 64 minima and 64 maxima over
+# circular windows, 32 to pick the best arcs and 4 to finish (180). Every
+# FAST corner there: the box sums over columns (18), the Harris response (7)
+# and 3x3 NMS (9).
+DETECT_OPS_PER_PIXEL = 32
+DETECT_OPS_PER_INTERIOR_PIXEL = 180
+DETECT_OPS_PER_CORNER = 34
+
+
+def check_detect(dev, gen):
+    from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_plain, n_cells
+    from forest_slam_tpu_torch.frontend.fast import interior_mask, fast_score_map
+    from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
+
+    cfg = OrbConfig(n_features=ORB_FEATURES, n_levels=ORB_LEVELS)
+    args = (cfg.fast_threshold, cfg.harris_block, cfg.edge_margin)
+    sizes, _ = _level_geometry(H, W, cfg)
+    B = FRAME_BATCH
+    err, mask_eq, idx_eq, close = 0.0, True, True, True
+    ms, plain_ms, nbytes, ops, n_finite = [], [], 0, 0, 0
+    for h, w, _ in sizes:
+        img = (torch.rand((B, h, w), generator=gen, device=dev) * 255.0).contiguous()
+        v, i = detect_pooled(img, *args)
+        rv, ri = detect_pooled_plain(img, *args)
+        fin = torch.isfinite(rv)
+        n_finite += int(fin.sum().item())
+        mask_eq &= torch.equal(torch.isfinite(v), fin)
+        idx_eq &= torch.equal(i[fin], ri[fin])
+        if mask_eq and fin.any():
+            err = max(err, (v[fin] - rv[fin]).abs().max().item())
+            close &= torch.allclose(v[fin], rv[fin], rtol=1e-5, atol=0.0)
+        ms.append(time_ms(lambda: detect_pooled(img, *args)))
+        plain_ms.append(time_ms(lambda: detect_pooled_plain(img, *args)))
+        ncy, ncx = n_cells(h, w)
+        interior = interior_mask(h, w, cfg.edge_margin, dev)
+        corners = int(((fast_score_map(img, cfg.fast_threshold) > 0) & interior).sum())
+        nbytes += 4 * B * h * w + 8 * B * ncy * ncx
+        ops += (DETECT_OPS_PER_PIXEL * B * h * w + DETECT_OPS_PER_INTERIOR_PIXEL * B * int(interior.sum())
+                + DETECT_OPS_PER_CORNER * corners)
+    b_ms, b_by = bound(nbytes, ops, F32_OPS)
+    n = len(sizes)
+    return dict(
+        name="detect", source="forest_slam_tpu_torch/csrc/detect.cu",
+        replaces="forest_slam_tpu/frontend/pallas_detect.py:277",
+        tolerance="same finite mask, values rtol 1e-5, indices equal",
+        max_abs_err=err, mask_equal=mask_eq, indices_equal=idx_eq, finite_cells=n_finite,
+        ok=mask_eq and idx_eq and close and n_finite > 0,
+        # per launch, the mean over the eight level shapes: launches x ms is
+        # the kernel's time in a run
+        ms=sum(ms) / n, plain_ms=sum(plain_ms) / n, bound_ms=b_ms / n, bound_by=b_by, library_ms=None,
+        level_ms=ms,
+    )
+
+
 def render_clip(dev):
     from forest_slam_tpu_torch.core.lie import se3_compose
     from forest_slam_tpu_torch.io.synthetic import corridor_trajectory, default_rig, make_corridor_world, render_view
@@ -235,6 +302,34 @@ def ate(poses, gt):
     return ape_translation(est, ref, align=True, with_scale=False).rmse
 
 
+def drive_path(wrappers, run):
+    """Run one main path with every launch count set to 0 just before it:
+    (its result, its launch counts, its wall time)."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    out = run()
+    torch.cuda.synchronize()
+    elapsed = time.time() - t
+    return out, {name: fn.launches for name, fn in wrappers.items()}, elapsed
+
+
+def path_failures(name, out, tracked, err, launches, path_kernels):
+    n_pairs = N_FRAMES - 1
+    failures = []
+    if not (bool(torch.isfinite(out.pose).all().item()) and tuple(out.pose.shape) == (n_pairs, 4, 4)):
+        failures.append(f"{name}: poses not finite or of the wrong shape")
+    if tracked < MIN_TRACKED * n_pairs:
+        failures.append(f"{name}: only {tracked}/{n_pairs} pairs tracked")
+    if not err < MAX_ATE_M:
+        failures.append(f"{name}: ATE {err} m >= {MAX_ATE_M} m")
+    zero = [k for k in path_kernels if launches[k] == 0]
+    if zero:
+        failures.append(f"{name}: kernels never launched on the path: {zero}")
+    return failures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this smoke test needs a CUDA card",
@@ -262,11 +357,13 @@ def main() -> int:
             print("  ptxas: " + line.strip(), flush=True)
 
     from forest_slam_tpu_torch.frontend.base import learned_frontend
+    from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled
     from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer
+    from forest_slam_tpu_torch.frontend.orb import OrbConfig
     from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume
     from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode
     from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
-    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo_device
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo, run_stereo_vo_device
     from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows
 
     fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev)
@@ -278,12 +375,17 @@ def main() -> int:
     results = []
     with torch.no_grad():
         for check in (lambda: check_sparse(dev, gen), lambda: check_gnn(dev, gen, fe),
-                      lambda: check_sinkhorn(dev, gen, fe), lambda: check_refine(dev, gen)):
+                      lambda: check_sinkhorn(dev, gen, fe), lambda: check_refine(dev, gen),
+                      lambda: check_detect(dev, gen)):
             r = check()
             results.append(r)
             log(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.6g} (tolerance {r['tolerance']}) "
                 f"{'PASS' if r['ok'] else 'FAIL'}; {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    det = results[-1]
+    log(f"  detect at the eight levels (B={FRAME_BATCH}): mask equal {det['mask_equal']}, indices equal "
+        f"{det['indices_equal']}, {det['finite_cells']} finite cells; kernel ms per level "
+        f"{[round(t, 4) for t in det['level_ms']]}")
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         print(f"FAIL: kernels disagree with their plain versions: {bad}", file=sys.stderr)
@@ -292,66 +394,86 @@ def main() -> int:
     il, ir, gt, rig = render_clip(dev)
     torch.cuda.synchronize()
     log(f"rendered {UNIQUE_FRAMES} corridor frames at {W}x{H} on the card, ping-pong to {N_FRAMES} frames")
+    n_pairs = N_FRAMES - 1
+    wrappers = {"sparse_cost": sparse_cost_rows, "gnn_layer": gnn_layer, "sinkhorn_decode": sinkhorn_decode,
+                "refine_cost": refine_cost_volume, "detect": detect_pooled}
+    ms_of = {r["name"]: r["ms"] for r in results}
+    failures, launches_by_path = [], {}
 
+    def report(name, out, t_run, launches):
+        tracked = int(out.ok.sum().item())
+        err = ate(out.pose, gt)
+        log(f"{name} path: {tracked}/{n_pairs} pairs tracked, ATE {err:.4f} m, {n_pairs / t_run:.2f} pairs/s "
+            f"({t_run:.3f} s) on {torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
+        for k, n in launches.items():
+            if n:
+                est = n * ms_of[k] / 1e3
+                log(f"  {k}: {n} launches x {ms_of[k]:.4f} ms (kernel phase's shapes) = {est:.4f} s, "
+                    f"{100 * est / t_run:.1f}% of the run")
+        return tracked, err
+
+    def compare(name, out, plain_out, t_plain):
+        ok_agree = (plain_out.ok == out.ok).float().mean().item()
+        dpose = (plain_out.pose[:, :3, 3] - out.pose[:, :3, 3]).norm(dim=-1).max().item()
+        log(f"{name} plain path: {int(plain_out.ok.sum().item())}/{n_pairs} tracked, "
+            f"ATE {ate(plain_out.pose, gt):.4f} m, {t_plain:.3f} s; ok agreement {ok_agree:.3f}, "
+            f"largest position difference {dpose:.4f} m")
+        return ok_agree
+
+    # ORB path: the JAX package's default front end, bench.py --frontend orb
+    orb_cfg = StereoConfig(orb=OrbConfig(n_features=ORB_FEATURES, n_levels=ORB_LEVELS), max_match_distance=64,
+                           n_hypotheses=1024, compose_mode="odometry", match_refine_radius=0)
+    ts = np.arange(N_FRAMES) * 0.1
+
+    def run_orb(c):
+        return lambda: run_stereo_vo(il, ir, ts, rig, c, seed=0, frame_batch=FRAME_BATCH,
+                                     pair_batch=PAIR_BATCH)[1]
+
+    _, _, t_cold = drive_path(wrappers, run_orb(orb_cfg))
+    log(f"ORB path warm-up run: {t_cold:.2f} s")
+    out, launches, t_run = drive_path(wrappers, run_orb(orb_cfg))
+    launches_by_path["orb"] = launches
+    tracked, err = report("ORB", out, t_run, launches)
+    failures += path_failures("ORB", out, tracked, err, launches, ("detect", "sparse_cost"))
+    plain_orb = orb_cfg._replace(orb=orb_cfg.orb._replace(detect_path="plain"),
+                                 sparse=orb_cfg.sparse._replace(cost_path="plain"))
+    plain_out, _, t_plain = drive_path(wrappers, run_orb(plain_orb))
+    if compare("ORB", out, plain_out, t_plain) < 1.0:
+        failures.append("ORB: the kernels and the plain versions track different pairs")
+
+    # learned path: SuperPoint + SuperGlue, the bench's default
     cfg = StereoConfig(n_hypotheses=1024, compose_mode="odometry", match_refine_radius=12)
     frontend = learned_frontend(fe)
-    wrappers = {"sparse_cost": sparse_cost_rows, "gnn_layer": gnn_layer,
-                "sinkhorn_decode": sinkhorn_decode, "refine_cost": refine_cost_volume}
 
-    def drive(c, f):
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
-        torch.cuda.synchronize()
-        t = time.time()
-        out = run_stereo_vo_device(il, ir, rig, c, g, f, frame_batch=FRAME_BATCH, pair_batch=PAIR_BATCH)
-        torch.cuda.synchronize()
-        return out, time.time() - t
+    def run_learned(c, f):
+        def run():
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            return run_stereo_vo_device(il, ir, rig, c, g, f, frame_batch=FRAME_BATCH, pair_batch=PAIR_BATCH)
+        return run
 
-    _, t_cold = drive(cfg, frontend)
-    log(f"main path warm-up run: {t_cold:.2f} s")
-    for fn in wrappers.values():
-        fn.launches = 0
-    out, t_run = drive(cfg, frontend)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    n_pairs = N_FRAMES - 1
-    tracked = int(out.ok.sum().item())
-    err = ate(out.pose, gt)
-    finite = bool(torch.isfinite(out.pose).all().item()) and tuple(out.pose.shape) == (n_pairs, 4, 4)
-    log(f"main path: {tracked}/{n_pairs} pairs tracked, ATE {err:.4f} m, {n_pairs / t_run:.2f} pairs/s "
-        f"({t_run:.3f} s) on {torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
-
-    for r in results:
-        est = launches[r["name"]] * r["ms"] / 1e3
-        log(f"  {r['name']}: {launches[r['name']]} launches x {r['ms']:.4f} ms (kernel phase's shapes) "
-            f"= {est:.4f} s, {100 * est / t_run:.1f}% of the run")
+    _, _, t_cold = drive_path(wrappers, run_learned(cfg, frontend))
+    log(f"learned path warm-up run: {t_cold:.2f} s")
+    out, launches, t_run = drive_path(wrappers, run_learned(cfg, frontend))
+    launches_by_path["learned"] = launches
+    tracked, err = report("learned", out, t_run, launches)
+    failures += path_failures("learned", out, tracked, err, launches,
+                              ("sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"))
     plain_fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev,
                                      superglue_overrides={"gnn_impl": "plain", "sinkhorn_impl": "plain"})
     plain_cfg = cfg._replace(sparse=cfg.sparse._replace(cost_path="plain"), match_refine_cost_path="plain")
-    plain_out, t_plain = drive(plain_cfg, learned_frontend(plain_fe))
-    ok_agree = (plain_out.ok == out.ok).float().mean().item()
-    dpose = (plain_out.pose[:, :3, 3] - out.pose[:, :3, 3]).norm(dim=-1).max().item()
-    plain_ate = ate(plain_out.pose, gt)
-    log(f"plain path: {int(plain_out.ok.sum().item())}/{n_pairs} tracked, ATE {plain_ate:.4f} m, "
-        f"{t_plain:.3f} s; ok agreement {ok_agree:.3f}, largest position difference {dpose:.4f} m")
+    plain_out, _, t_plain = drive_path(wrappers, run_learned(plain_cfg, learned_frontend(plain_fe)))
+    compare("learned", out, plain_out, t_plain)
 
-    failures = []
-    if not finite:
-        failures.append("poses not finite or of the wrong shape")
-    if tracked < MIN_TRACKED * n_pairs:
-        failures.append(f"only {tracked}/{n_pairs} pairs tracked")
-    if not err < MAX_ATE_M:
-        failures.append(f"ATE {err} m >= {MAX_ATE_M} m")
-    zero = [k for k, v in launches.items() if v == 0]
-    if zero:
-        failures.append(f"kernels never launched on the main path: {zero}")
     if failures:
         print("FAIL: " + "; ".join(failures), file=sys.stderr)
         return 1
 
     kernels = []
     for r in results:
+        by_path = {p: counts[r["name"]] for p, counts in launches_by_path.items()}
         kernels.append({k: r[k] for k in ("name", "source", "replaces")}
-                       | {"route": "cuda", "launches": launches[r["name"]]}
+                       | {"route": "cuda", "launches": sum(by_path.values()), "launches_by_path": by_path}
                        | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     log("done")
     print(smi, flush=True)

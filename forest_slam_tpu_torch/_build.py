@@ -2,12 +2,12 @@
 
 Every ``csrc/*.cu`` file has a plain C interface (``extern "C"`` launchers
 that take raw pointers, ints and a ``cudaStream_t`` and return
-``cudaGetLastError()``) and includes no PyTorch header. One ``nvcc`` command
-compiles all of them for ``sm_90a`` into one shared library under
-``_build/`` (listed in ``.gitignore``), named by a hash of the sources and the
-flags. The library is built at first use, written under a temporary name and
-renamed into place, so an interrupted build leaves nothing that a later build
-would wait on.
+``cudaGetLastError()``) and includes no PyTorch header. One ``nvcc`` per
+source, all started together, compiles each for ``sm_90a`` into an object
+file; one more links them into one shared library under ``_build/`` (listed
+in ``.gitignore``), named by a hash of the sources and the flags. The library
+is built at first use, written under a temporary name and renamed into place,
+so an interrupted build leaves nothing that a later build would wait on.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 600
 
@@ -72,26 +72,41 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    obj_dir = f"{tmp}.objs"
+    os.makedirs(obj_dir)
     t0 = time.time()
     try:
-        proc = subprocess.run(
-            cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
-        )
-    except subprocess.TimeoutExpired as e:
+        objs = [os.path.join(obj_dir, os.path.basename(src) + ".o") for src in sources()]
+        log = _run_all([[nvcc_path(), *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(sources(), objs)])
+        log += _run_all([[nvcc_path(), "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, path)
+    finally:
         _remove(tmp)
-        raise RuntimeError(
-            f"nvcc timed out after {BUILD_TIMEOUT_S} s:\n{e.stdout or ''}{e.stderr or ''}"
-        ) from e
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        _remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{log}"
-        )
-    os.replace(tmp, path)
+        shutil.rmtree(obj_dir, ignore_errors=True)
     last_build.update(seconds=time.time() - t0, cached=False, log=log)
     return path
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; their joined output, or RuntimeError
+    with the output of each that failed or timed out."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    deadline = time.time() + BUILD_TIMEOUT_S
+    outs, errors = [], []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            out, _ = proc.communicate(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            errors.append(f"nvcc timed out after {BUILD_TIMEOUT_S} s:\n{' '.join(cmd)}\n{out}")
+            continue
+        outs.append(out)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return "".join(outs)
 
 
 def _remove(path: str) -> None:

@@ -21,6 +21,23 @@ class FrontendFns(NamedTuple):
     name: str = "frontend"
 
 
+def orb_frontend(orb_cfg, max_match_distance: int = 64) -> FrontendFns:
+    """ORB + cross-checked Hamming matching (the reference's commented
+    alternative, ``cv2.ORB_create`` + ``BFMatcher(NORM_HAMMING,
+    crossCheck=True)``)."""
+    from forest_slam_tpu_torch.frontend.matching import hamming_distance_matrix, mutual_nn_match
+    from forest_slam_tpu_torch.frontend.orb import extract_orb
+
+    def extract(images):
+        return extract_orb(images, orb_cfg)
+
+    def match(f0, f1, image_shape):
+        dist = hamming_distance_matrix(f0.desc, f1.desc)
+        return mutual_nn_match(dist, f0.valid, f1.valid, max_distance=max_match_distance)
+
+    return FrontendFns(extract=extract, match=match, name="orb")
+
+
 def learned_frontend(fe) -> FrontendFns:
     """SuperPoint + SuperGlue (``fe`` is a frontend.learned.LearnedFrontend)."""
 

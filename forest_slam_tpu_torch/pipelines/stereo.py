@@ -1,5 +1,5 @@
 """Stereo visual odometry, frame-parallel (port of pipelines/stereo.py's
-device runner).
+batched and device runners).
 
 Three phases over a stereo sequence (N, H, W):
 
@@ -7,19 +7,25 @@ Three phases over a stereo sequence (N, H, W):
 2. per pair, in batches: temporal match, SAD refinement of the
    observations, PnP-RANSAC and the acceptance gate;
 3. chaining of the gated relative poses and world-frame map points.
+
+:func:`run_stereo_vo` is the host entry point (ORB by default);
+:func:`run_stereo_vo_device` takes any front end.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from forest_slam_tpu_torch.core.camera import StereoRig, backproject_depth
 from forest_slam_tpu_torch.core.lie import mm, se3_chain, se3_inverse, se3_matrix
-from forest_slam_tpu_torch.frontend.base import FrontendFns
+from forest_slam_tpu_torch.frontend.base import FrontendFns, orb_frontend
+from forest_slam_tpu_torch.frontend.orb import OrbConfig
 from forest_slam_tpu_torch.frontend.refine import RefineConfig, refine_matches_quality
 from forest_slam_tpu_torch.geometry.pnp import solve_pnp_ransac
+from forest_slam_tpu_torch.io.tum import Trajectory
 from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig, sparse_depth_at_keypoints
 
 
@@ -41,6 +47,9 @@ class StereoConfig(NamedTuple):
     # leave the PnP input set and its quality biases the RANSAC draws
     match_refine_radius: int = 0
     match_refine_cost_path: str = "auto"
+    # the default front end of run_stereo_vo: ORB and its Hamming gate
+    orb: OrbConfig = OrbConfig()
+    max_match_distance: int = 64
 
 
 class StereoStepOut(NamedTuple):
@@ -174,3 +183,30 @@ def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, 
             generator=generator,
         ))
     return chain_and_map(_cat(outs), torch.eye(4, device=images_l.device))
+
+
+def run_stereo_vo(images_l, images_r, timestamps, rig: StereoRig, cfg: StereoConfig = StereoConfig(), seed: int = 0,
+                  frontend: FrontendFns | None = None, mode: str = "batched", ba=None, device=None,
+                  frame_batch: int = 8, pair_batch: int = 8) -> tuple[Trajectory, StereoStepOut]:
+    """Host entry point: the trajectory of frames 1..N-1 and the per-pair
+    outputs of (N, H, W) stereo stacks in [0, 255] (arrays or tensors).
+    The default front end is ORB (``cfg.orb``, ``cfg.max_match_distance``);
+    pass ``frontend=learned_frontend(fe)`` for SuperPoint + SuperGlue. Runs
+    on ``device``, else on the images' device when they are tensors, else on
+    the card. The PnP draws come from a generator seeded with ``seed``."""
+    if mode != "batched":
+        raise NotImplementedError(f"mode={mode!r}: the port runs the batched mode only; the sequential scan "
+                                  "is left for a later slice")
+    if ba is not None:
+        raise NotImplementedError("ba: sliding-window bundle adjustment is left for a later slice")
+    if device is None:
+        device = images_l.device if isinstance(images_l, torch.Tensor) else "cuda"
+    images_l, images_r = (torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x),
+                                          dtype=torch.float32, device=device) for x in (images_l, images_r))
+    if frontend is None:
+        frontend = orb_frontend(cfg.orb, cfg.max_match_distance)
+    generator = torch.Generator(device=images_l.device)
+    generator.manual_seed(seed)
+    outs = run_stereo_vo_device(images_l, images_r, rig, cfg, generator, frontend, frame_batch, pair_batch)
+    traj = Trajectory.from_matrices(np.asarray(timestamps)[1:], outs.pose.double().cpu().numpy())
+    return traj, outs

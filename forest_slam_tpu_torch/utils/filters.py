@@ -1,4 +1,4 @@
-"""Separable image filters (port of utils/filters.py, the parts the slice uses).
+"""Separable image filters (port of utils/filters.py, the parts the port uses).
 
 Filters are written as sums of shifted slices rather than float32
 convolutions, so no TF32 rounding can enter on the card whatever
@@ -7,6 +7,7 @@ convolutions, so no TF32 rounding can enter on the card whatever
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +35,23 @@ def conv2d_separable(img: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor) -> t
     return _filter1d(_filter1d(img.float(), ky, -2), kx, -1)
 
 
+def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> torch.Tensor:
+    """7x7 sigma-2 by default: the smoothing ORB applies before BRIEF."""
+    k = gaussian_kernel1d(sigma, radius)
+    return conv2d_separable(img, k, k)
+
+
+def box_filter(img: torch.Tensor, size: int, normalize: bool = True) -> torch.Tensor:
+    k = [1.0 / size if normalize else 1.0] * size
+    return conv2d_separable(img, k, k)
+
+
 def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Sobel gradients (dx, dy) with OpenCV's 3x3 kernels."""
     deriv = [-1.0, 0.0, 1.0]
@@ -48,3 +66,13 @@ def maxpool2d_same(img: torch.Tensor, size: int) -> torch.Tensor:
     shape = img.shape
     x = img.reshape(-1, 1, shape[-2], shape[-1])
     return F.max_pool2d(x, size, stride=1, padding=r).reshape(shape)
+
+
+def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear resize of (..., H, W) with half-pixel centres, antialiased
+    when it downsamples: ``jax.image.resize(..., "linear")``, which widens
+    its triangle kernel by the scale factor on a downsample."""
+    shape = img.shape
+    x = img.float().reshape(-1, 1, shape[-2], shape[-1])
+    out = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False, antialias=True)
+    return out.reshape(*shape[:-2], height, width)

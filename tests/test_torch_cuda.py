@@ -4,14 +4,18 @@ Marked ``cuda``: each test decides in the ``cuda`` fixture whether a card is
 present and skips with a reason where there is none (the CPU run). On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
 chip_smoke.py: integer-valued images make the SAD kernels exact; the GNN
-layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4.
+layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4; the
+detection kernel keeps the same finite mask, values to rtol 1e-5 and equal
+indices (it sums Harris in the plain version's order, so it is exact).
 """
 
 import pytest
 import torch
 
+from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_plain
 from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain, split_layer_params
 from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
 from forest_slam_tpu_torch.stereo.sparse import prefilter
 from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
@@ -85,3 +89,49 @@ def test_gnn_layer_kernel(cuda):
     scale = max(1.0, ref.abs().max().item())
     assert (got - ref).abs().max().item() <= 0.05 * scale
     assert (got - ref).abs().mean().item() <= 2e-3 * scale
+
+
+def _check_detect(imgs, **kw):
+    n = detect_pooled.launches
+    vals, idx = detect_pooled(imgs, **kw)
+    assert detect_pooled.launches == n + 1
+    ref_v, ref_i = detect_pooled_plain(imgs, **kw)
+    fin = torch.isfinite(ref_v)
+    assert torch.equal(torch.isfinite(vals), fin)
+    torch.testing.assert_close(vals[fin], ref_v[fin], rtol=1e-5, atol=0)
+    assert torch.equal(idx, ref_i)  # empty cells too: their top-left pixel
+    return int(fin.sum())
+
+
+def test_detect_kernel_ragged_batched(cuda):
+    dev, g = cuda
+    for B, H, W in ((3, 83, 157), (2, 45, 70), (1, 33, 41)):
+        imgs = (torch.rand((B, H, W), generator=g, device=dev) * 255).contiguous()
+        assert _check_detect(imgs) > 0
+    blocks = torch.randint(0, 256, (2, 12, 20), generator=g, device=dev).float()
+    blocky = blocks.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :90, :150].contiguous()
+    assert _check_detect(blocky, margin=4) > 0  # equal responses: the tie rule
+
+
+def test_detect_kernel_empty_cells(cuda):
+    dev, _ = cuda
+    assert _check_detect(torch.full((2, 61, 77), 9.0, device=dev)) == 0
+
+
+def test_detect_kernel_pyramid_shapes(cuda):
+    dev, g = cuda
+    sizes, _ = _level_geometry(600, 960, OrbConfig())
+    for h, w, _ in sizes:
+        imgs = (torch.rand((8, h, w), generator=g, device=dev) * 255).contiguous()
+        assert _check_detect(imgs) > 100
+
+
+def test_detect_kernel_rejects_what_it_does_not_take(cuda):
+    dev, _ = cuda
+    imgs = torch.zeros((1, 40, 40), device=dev)
+    with pytest.raises(ValueError, match="harris_block"):
+        detect_pooled(imgs, harris_block=9)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        detect_pooled(imgs.double())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        detect_pooled(torch.zeros((1, 40, 80), device=dev)[:, :, ::2])

@@ -85,6 +85,6 @@ def test_library_name_follows_sources_and_flags(monkeypatch):
 
     a = _build.library_path()
     assert a == _build.library_path()
-    assert len(_build.sources()) == 4
+    assert len(_build.sources()) == 5
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DEXTRA",))
     assert _build.library_path() != a
