@@ -13,7 +13,10 @@ Phases, each printing one line with its elapsed seconds:
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, with its stated tolerance, its time, the plain version's
    time and its bound (the detection kernel at all eight pyramid levels of a
-   960x600 frame, a batch of 8 frames each);
+   960x600 frame, a batch of 8 frames each; the select kernel at a batch of
+   8 960x600 heat maps and at the lowres gate's three octaves of 24 frames;
+   the attention kernel at 16 sequences of 4 heads, K=S=1024, beside
+   ``scaled_dot_product_attention`` as a yardstick);
 4. ORB path: renders a 960x600 corridor clip on the card and runs stereo VO
    through ``run_stereo_vo`` with its default ORB front end (512 features,
    8 levels, Hamming distance <= 64, 1024 DLT-6 hypotheses, no refinement),
@@ -22,7 +25,15 @@ Phases, each printing one line with its elapsed seconds:
 5. learned path: loads the flagship checkpoint and runs stereo VO (K=1024,
    refine radius 12, 1024 DLT-6 hypotheses) on the same clip through the
    kernels, counting their launches; then the same frames through the plain
-   versions for comparison.
+   versions for comparison;
+6. learned path with the unfused GNN (``bench.py --sg-gnn xla``): the same
+   run with every GNN layer op by op around the attention kernel, which
+   must launch while the fused layer kernel does not; then the plain
+   versions;
+7. lowres gate (``bench.py:626-682``): 24 corridor frames at 224x160,
+   extracted at octaves (1.0, 1.7, 2.89), K=512, 512 hypotheses, refine
+   radius 12, frame and pair batches of 24, held to 21/23 tracked and ATE
+   below 0.05 m.
 
 Each path starts with every launch count at 0 and reads them when it ends.
 
@@ -60,6 +71,14 @@ FRAME_BATCH = 8
 PAIR_BATCH = 8
 MIN_TRACKED = 0.9
 MAX_ATE_M = 0.25
+# the lowres gate (bench.py:626-682) and the reference's record of it
+# (BENCH_r05.json, parsed.lowres_*)
+LOWRES_H, LOWRES_W, LOWRES_FRAMES = 160, 224, 24
+LOWRES_SCALES = (1.0, 1.7, 2.89)
+LOWRES_K = 512
+LOWRES_MAX_ATE_M = 0.05
+LOWRES_REFERENCE = "23/23 tracked at ATE 0.0221 m"
+HEADS, HEAD_DIM = 4, 64
 
 
 def log(msg: str) -> None:
@@ -272,19 +291,104 @@ def check_detect(dev, gen):
     )
 
 
-def render_clip(dev):
+def peaky_heat(dev, gen, shape):
+    """Heat maps of SuperPoint's kind: most pixels tiny, 1% clear peaks."""
+    heat = torch.rand(shape, generator=gen, device=dev) * 0.004
+    peaks = torch.rand(shape, generator=gen, device=dev)
+    return torch.where(peaks > 0.99, peaks, heat).contiguous()
+
+
+# comparisons of the select kernel (csrc/select.cu) per pixel: the separable
+# (2r+1)^2 window maximum (2 * 2r), the three tests and the block reduction
+def select_ops_per_pixel(radius):
+    return 4 * radius + 4
+
+
+def check_select(dev, gen):
+    from forest_slam_tpu_torch.frontend.learned import octave_shape
+    from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
+
+    s8 = 32  # the flagship's stem 4 x 8
+    shapes = [(FRAME_BATCH, H, W)] + [(LOWRES_FRAMES, *octave_shape(LOWRES_H, LOWRES_W, s, s8))
+                                       for s in LOWRES_SCALES]
+    exact, per_shape, n_kept = True, [], 0
+    for shape in shapes:
+        heat = peaky_heat(dev, gen, shape)
+        v, i = nms_block_max(heat)
+        rv, ri = nms_block_max_plain(heat)
+        exact &= torch.equal(v, rv) and torch.equal(i, ri)
+        n_kept += int((rv > 0).sum().item())
+        B_, H_, W_ = shape
+        b_ms, b_by = bound(4 * B_ * H_ * W_ + 8 * B_ * (H_ // 4) * (W_ // 4),
+                           select_ops_per_pixel(4) * B_ * H_ * W_, F32_OPS)
+        per_shape.append(dict(shape=list(shape), ms=time_ms(lambda: nms_block_max(heat)),
+                              plain_ms=time_ms(lambda: nms_block_max_plain(heat)), bound_ms=b_ms, bound_by=b_by))
+    main = per_shape[0]  # the 960x600 paths' shape
+    return dict(
+        name="select", source="forest_slam_tpu_torch/csrc/select.cu",
+        replaces="forest_slam_tpu/frontend/pallas_select.py:167", tolerance="exact (values and indices equal)",
+        max_abs_err=0.0 if exact else float("inf"), kept_blocks=n_kept, ok=exact and n_kept > 0,
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, per_shape=per_shape,
+    )
+
+
+def check_attention(dev, gen):
+    import torch.nn.functional as F
+
+    from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward, masked_attention_plain
+
+    B = 2 * PAIR_BATCH  # both images of a pair batch in one launch
+    shape = (B, HEADS, K, HEAD_DIM)
+    q = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    k = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.rand((B, K), generator=gen, device=dev) < 0.7
+    mask[-1] = False  # a sequence whose sources are all masked: its queries average v
+    scale = 1.0 / HEAD_DIM ** 0.5
+    got = attention_forward(q, k, v, mask, scale).float()
+    ref = masked_attention_plain(q, k, v, mask, scale).float()
+    top = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    mean_err = (got - ref).abs().mean().item()
+    # bf16 probabilities and output: sums in another order may flip a rounding
+    ok = bool(torch.isfinite(got).all().item()) and err <= 2.0 ** -7 * top and mean_err <= 1e-3 * max(top, 1.0)
+    masked_row_err = (got[-1] - v[-1].float().mean(dim=1, keepdim=True)).abs().max().item()
+    amask = mask[:, None, None, :]
+    sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale)
+    b_ms, b_by = bound(4 * q.numel() * 2 + mask.numel(), 4 * B * HEADS * K * K * HEAD_DIM, BF16_OPS)
+    return dict(
+        name="attention", source="forest_slam_tpu_torch/csrc/attention.cu",
+        replaces="forest_slam_tpu/frontend/pallas_attention.py:149",
+        tolerance="max <= 2^-7 * max|ref|, mean <= 1e-3 * max|ref|",
+        max_abs_err=err, mean_abs_err=mean_err, masked_row_err=masked_row_err, ok=ok,
+        sdpa_nan_rows=bool(torch.isnan(sdpa[-1]).any().item()),
+        ms=time_ms(lambda: attention_forward(q, k, v, mask, scale)),
+        plain_ms=time_ms(lambda: masked_attention_plain(q, k, v, mask, scale)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale)),
+    )
+
+
+def render_frames(dev, h, w, n):
+    """n consecutive corridor frames at w x h rendered on the card: (left,
+    right, ground-truth poses, rig)."""
     from forest_slam_tpu_torch.core.lie import se3_compose
     from forest_slam_tpu_torch.io.synthetic import corridor_trajectory, default_rig, make_corridor_world, render_view
 
     world = make_corridor_world(seed=0, device=dev)
-    rig = default_rig(H, W, baseline=0.25, device=dev)
-    Ts = corridor_trajectory(UNIQUE_FRAMES, speed=0.15, device=dev)
+    rig = default_rig(h, w, baseline=0.25, device=dev)
+    Ts = corridor_trajectory(n, speed=0.15, device=dev)
     il, ir = [], []
-    for s in range(0, UNIQUE_FRAMES, 8):
+    for s in range(0, n, 8):
         T = Ts[s:s + 8]
-        il.append(render_view(world, T, rig.left.K, H, W)[0])
-        ir.append(render_view(world, se3_compose(T, rig.T_left_right), rig.left.K, H, W)[0])
-    il, ir = torch.cat(il), torch.cat(ir)
+        il.append(render_view(world, T, rig.left.K, h, w)[0])
+        ir.append(render_view(world, se3_compose(T, rig.T_left_right), rig.left.K, h, w)[0])
+    return torch.cat(il), torch.cat(ir), Ts, rig
+
+
+def render_clip(dev):
+    il, ir, Ts, rig = render_frames(dev, H, W, UNIQUE_FRAMES)
     # ping-pong 0..U-1, U-2..1, ... so consecutive frames stay adjacent
     period = np.concatenate([np.arange(UNIQUE_FRAMES), np.arange(UNIQUE_FRAMES - 2, 0, -1)])
     idx = np.tile(period, -(-N_FRAMES // len(period)))[:N_FRAMES]
@@ -315,18 +419,21 @@ def drive_path(wrappers, run):
     return out, {name: fn.launches for name, fn in wrappers.items()}, elapsed
 
 
-def path_failures(name, out, tracked, err, launches, path_kernels):
-    n_pairs = N_FRAMES - 1
+def path_failures(name, out, tracked, err, launches, path_kernels, n_pairs=N_FRAMES - 1, max_ate=MAX_ATE_M,
+                  idle_kernels=()):
     failures = []
     if not (bool(torch.isfinite(out.pose).all().item()) and tuple(out.pose.shape) == (n_pairs, 4, 4)):
         failures.append(f"{name}: poses not finite or of the wrong shape")
     if tracked < MIN_TRACKED * n_pairs:
         failures.append(f"{name}: only {tracked}/{n_pairs} pairs tracked")
-    if not err < MAX_ATE_M:
-        failures.append(f"{name}: ATE {err} m >= {MAX_ATE_M} m")
+    if not err < max_ate:
+        failures.append(f"{name}: ATE {err} m >= {max_ate} m")
     zero = [k for k in path_kernels if launches[k] == 0]
     if zero:
         failures.append(f"{name}: kernels never launched on the path: {zero}")
+    busy = [k for k in idle_kernels if launches[k] != 0]
+    if busy:
+        failures.append(f"{name}: kernels launched that the path must not run: {busy}")
     return failures
 
 
@@ -353,14 +460,16 @@ def main() -> int:
     path = _build.build()
     log(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s (cached={_build.last_build['cached']})")
     for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas: " + line.strip(), flush=True)
 
+    from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward
     from forest_slam_tpu_torch.frontend.base import learned_frontend
     from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled
     from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer
     from forest_slam_tpu_torch.frontend.orb import OrbConfig
     from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume
+    from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max
     from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode
     from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
     from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo, run_stereo_vo_device
@@ -376,16 +485,27 @@ def main() -> int:
     with torch.no_grad():
         for check in (lambda: check_sparse(dev, gen), lambda: check_gnn(dev, gen, fe),
                       lambda: check_sinkhorn(dev, gen, fe), lambda: check_refine(dev, gen),
-                      lambda: check_detect(dev, gen)):
+                      lambda: check_detect(dev, gen), lambda: check_select(dev, gen),
+                      lambda: check_attention(dev, gen)):
             r = check()
             results.append(r)
             log(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.6g} (tolerance {r['tolerance']}) "
                 f"{'PASS' if r['ok'] else 'FAIL'}; {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
-    det = results[-1]
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+                + (f"; scaled_dot_product_attention {r['library_ms']:.4f} ms" if r["library_ms"] is not None else ""))
+    by_name = {r["name"]: r for r in results}
+    det = by_name["detect"]
     log(f"  detect at the eight levels (B={FRAME_BATCH}): mask equal {det['mask_equal']}, indices equal "
         f"{det['indices_equal']}, {det['finite_cells']} finite cells; kernel ms per level "
         f"{[round(t, 4) for t in det['level_ms']]}")
+    sel = by_name["select"]
+    log(f"  select: {sel['kept_blocks']} kept blocks, bit-exact at every shape; per shape (B, H, W): "
+        + "; ".join(f"{tuple(p['shape'])} {p['ms']:.4f} ms vs plain {p['plain_ms']:.4f} ms, bound "
+                    f"{p['bound_ms']:.4f} ms by {p['bound_by']}" for p in sel["per_shape"]))
+    att = by_name["attention"]
+    log(f"  attention at ({2 * PAIR_BATCH}, {HEADS}, {K}, {HEAD_DIM}): mean error {att['mean_abs_err']:.3g}; the "
+        f"fully masked sequence averages v to {att['masked_row_err']:.3g}; scaled_dot_product_attention gives "
+        f"NaN there: {att['sdpa_nan_rows']}")
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         print(f"FAIL: kernels disagree with their plain versions: {bad}", file=sys.stderr)
@@ -396,17 +516,20 @@ def main() -> int:
     log(f"rendered {UNIQUE_FRAMES} corridor frames at {W}x{H} on the card, ping-pong to {N_FRAMES} frames")
     n_pairs = N_FRAMES - 1
     wrappers = {"sparse_cost": sparse_cost_rows, "gnn_layer": gnn_layer, "sinkhorn_decode": sinkhorn_decode,
-                "refine_cost": refine_cost_volume, "detect": detect_pooled}
+                "refine_cost": refine_cost_volume, "detect": detect_pooled, "select": nms_block_max,
+                "attention": attention_forward}
     ms_of = {r["name"]: r["ms"] for r in results}
     failures, launches_by_path = [], {}
 
-    def report(name, out, t_run, launches):
+    def report(name, out, t_run, launches, truth=None, shares=True):
+        truth = gt if truth is None else truth
+        pairs = truth.shape[0] - 1
         tracked = int(out.ok.sum().item())
-        err = ate(out.pose, gt)
-        log(f"{name} path: {tracked}/{n_pairs} pairs tracked, ATE {err:.4f} m, {n_pairs / t_run:.2f} pairs/s "
+        err = ate(out.pose, truth)
+        log(f"{name} path: {tracked}/{pairs} pairs tracked, ATE {err:.4f} m, {pairs / t_run:.2f} pairs/s "
             f"({t_run:.3f} s) on {torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
         for k, n in launches.items():
-            if n:
+            if n and shares:
                 est = n * ms_of[k] / 1e3
                 log(f"  {k}: {n} launches x {ms_of[k]:.4f} ms (kernel phase's shapes) = {est:.4f} s, "
                     f"{100 * est / t_run:.1f}% of the run")
@@ -458,12 +581,55 @@ def main() -> int:
     launches_by_path["learned"] = launches
     tracked, err = report("learned", out, t_run, launches)
     failures += path_failures("learned", out, tracked, err, launches,
-                              ("sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"))
-    plain_fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev,
+                              ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"))
+    plain_sp = {"nms_backend": "plain"}
+    plain_fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev, superpoint_overrides=plain_sp,
                                      superglue_overrides={"gnn_impl": "plain", "sinkhorn_impl": "plain"})
     plain_cfg = cfg._replace(sparse=cfg.sparse._replace(cost_path="plain"), match_refine_cost_path="plain")
     plain_out, _, t_plain = drive_path(wrappers, run_learned(plain_cfg, learned_frontend(plain_fe)))
     compare("learned", out, plain_out, t_plain)
+    del plain_fe
+
+    # learned path with the unfused GNN: bench.py --sg-gnn xla
+    fe_x = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev,
+                                 superglue_overrides={"gnn_impl": "xla", "attention_impl": "auto"})
+    _, _, t_cold = drive_path(wrappers, run_learned(cfg, learned_frontend(fe_x)))
+    log(f"unfused-GNN path warm-up run: {t_cold:.2f} s")
+    out, launches, t_run = drive_path(wrappers, run_learned(cfg, learned_frontend(fe_x)))
+    launches_by_path["unfused"] = launches
+    tracked, err = report("unfused-GNN", out, t_run, launches)
+    failures += path_failures("unfused-GNN", out, tracked, err, launches,
+                              ("attention", "select", "sparse_cost", "sinkhorn_decode", "refine_cost"),
+                              idle_kernels=("gnn_layer",))
+    del fe_x
+    plain_fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev, superpoint_overrides=plain_sp,
+                                     superglue_overrides={"gnn_impl": "xla", "attention_impl": "plain",
+                                                          "sinkhorn_impl": "plain"})
+    plain_out, _, t_plain = drive_path(wrappers, run_learned(plain_cfg, learned_frontend(plain_fe)))
+    compare("unfused-GNN", out, plain_out, t_plain)
+    del plain_fe
+
+    # lowres gate: bench.py:626-682 at its default flags
+    gl, gr, gt_g, rig_g = render_frames(dev, LOWRES_H, LOWRES_W, LOWRES_FRAMES)
+    fe_g = load_learned_frontend(FLAGSHIP_PATH, (LOWRES_H, LOWRES_W), LOWRES_K, device=dev, scales=LOWRES_SCALES)
+    cfg_g = StereoConfig(n_hypotheses=LOWRES_K, compose_mode="odometry", match_refine_radius=12)
+
+    def run_lowres():
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        return run_stereo_vo_device(gl, gr, rig_g, cfg_g, g, learned_frontend(fe_g), frame_batch=LOWRES_FRAMES,
+                                    pair_batch=LOWRES_FRAMES)
+
+    _, _, t_cold = drive_path(wrappers, run_lowres)
+    log(f"lowres gate warm-up run: {t_cold:.2f} s")
+    out, launches, t_run = drive_path(wrappers, run_lowres)
+    launches_by_path["lowres"] = launches
+    tracked, err = report("lowres gate", out, t_run, launches, truth=gt_g, shares=False)
+    log(f"  lowres gate at {LOWRES_W}x{LOWRES_H}, octaves {LOWRES_SCALES}: {tracked}/{LOWRES_FRAMES - 1} tracked, "
+        f"ATE {err:.4f} m; the reference's record: {LOWRES_REFERENCE}")
+    failures += path_failures("lowres gate", out, tracked, err, launches,
+                              ("select", "gnn_layer", "sparse_cost", "sinkhorn_decode", "refine_cost"),
+                              n_pairs=LOWRES_FRAMES - 1, max_ate=LOWRES_MAX_ATE_M)
 
     if failures:
         print("FAIL: " + "; ".join(failures), file=sys.stderr)

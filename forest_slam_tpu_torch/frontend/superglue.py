@@ -1,11 +1,14 @@
 """SuperGlue-style attentional graph matcher for inference (port of
 frontend/superglue.py and the fused forward of frontend/pallas_gnn.py).
 
-Keypoint-position encoder, 2 x gnn_layers alternating self/cross GNN layers
-with the whole-layer numerics of the TPU's fused kernel (f32 softmax, bf16
-probabilities), final projection, and Sinkhorn with a dustbin decoded into
-the ``matches0`` / ``matching_scores0`` contract. Both keypoint sets are
-fixed-size masked tensors.
+Keypoint-position encoder, 2 x gnn_layers alternating self/cross GNN layers,
+final projection, and Sinkhorn with a dustbin decoded into the ``matches0`` /
+``matching_scores0`` contract. Both keypoint sets are fixed-size masked
+tensors. A GNN layer runs either whole in the fused kernel's numerics
+(``gnn_impl="auto"``/``"plain"``: f32 softmax, bf16 probabilities) or as the
+Flax module's unfused per-op layer (``gnn_impl="xla"``: bf16 Dense
+projections, the masked attention of ``attention_impl``, the merge, the MLP
+with Flax's LayerNorm, the residual).
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
+from forest_slam_tpu_torch.frontend.attention_kernel import masked_attention, masked_attention_plain
+from forest_slam_tpu_torch.frontend.gnn_kernel import LN_EPS, _bf, gnn_layer, gnn_layer_plain
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import (
     sinkhorn_decode,
     sinkhorn_decode_plain,
@@ -32,9 +36,16 @@ class SuperGlueConfig(NamedTuple):
     sinkhorn_iterations: int = 20
     match_threshold: float = 0.2
     # "auto": the CUDA kernels for CUDA tensors (their plain versions on
-    # CPU); "plain": the plain versions on any device.
+    # CPU); "plain": the plain versions on any device. gnn_impl "xla" runs
+    # the unfused per-op layer (bench.py --sg-gnn xla) with attention_impl.
     gnn_impl: str = "auto"
     sinkhorn_impl: str = "auto"
+    # attention of the unfused layer: "auto" the differentiable attention
+    # Function (the kernel for CUDA tensors), "plain" its plain version on
+    # any device, "xla" the dense einsum + softmax in softmax_dtype
+    # (bench.py --sg-attention xla; training's path)
+    attention_impl: str = "auto"
+    softmax_dtype: str = "float32"  # or "bfloat16"
 
 
 class MatchResult(NamedTuple):
@@ -66,27 +77,89 @@ class KeypointEncoder(nn.Module):
         return _dense(x, self.mlp_out)
 
 
+def dense_attention(q, k, v, source_mask, softmax_dtype: str = "float32"):
+    """The Flax module's dense attention path (superglue.py:205-218) on
+    (B, h, K, dh) bf16 heads: bf16 logits, softmax in ``softmax_dtype``
+    rounding after each op as XLA does, bf16 probabilities and output."""
+    if softmax_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown softmax_dtype {softmax_dtype!r}")
+    sdt = getattr(torch, softmax_dtype)
+    dh = q.shape[-1]
+    logits = _bf(q.float() @ k.float().transpose(-1, -2)).to(sdt)
+    logits = logits / torch.tensor(dh ** 0.5, dtype=sdt, device=q.device)
+    logits = torch.where(source_mask[:, None, None, :], logits, torch.tensor(NEG, dtype=sdt, device=q.device))
+    e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+    attn = _bf(e / e.float().sum(dim=-1, keepdim=True).to(sdt))
+    return _bf(attn.float() @ v.float())
+
+
+def attention(q, k, v, source_mask, impl: str = "auto", softmax_dtype: str = "float32"):
+    """Masked multi-head attention of (B, h, K, dh) bf16 heads by
+    ``attention_impl``."""
+    if impl == "xla":
+        return dense_attention(q, k, v, source_mask, softmax_dtype)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    if impl == "auto":
+        return masked_attention(q, k, v, source_mask, scale)
+    if impl == "plain":
+        return masked_attention_plain(q, k, v, source_mask, scale)
+    raise ValueError(f"unknown attention_impl {impl!r}")
+
+
+def gnn_layer_unfused(x, src, src_mask, weights: tuple, num_heads: int, attention_impl: str = "auto",
+                      softmax_dtype: str = "float32"):
+    """(N, K, D) bf16 -> (N, K, D) bf16: the Flax GnnLayer op by op
+    (superglue.py:151-235). Takes the fused kernel's split weights
+    (gnn_kernel.split_layer_params), which hold the same values as the Flax
+    Dense kernels: per-head q/k/v columns, merge rows grouped by head, MLP0
+    split into the rows acting on x and on the message."""
+    wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1 = weights
+    x = _bf(x)
+    src = _bf(src)
+
+    def heads(a, w, b):  # (N, L, D) @ (h, D, dh) -> (N, h, L, dh), Dense(bf16)
+        return _bf(_bf(a[:, None].float() @ w.float()).float() + b.float())
+
+    msg = attention(heads(x, wq, bq), heads(src, wk, bk), heads(src, wv, bv), src_mask, attention_impl,
+                    softmax_dtype)
+    merged = _bf(_bf(torch.einsum("nhkd,hde->nke", msg.float(), wm.float())).float() + bm.float())
+    y = _bf(_bf(x.float() @ w0a.float() + merged.float() @ w0b.float()).float() + b0.float())
+    # flax.linen.LayerNorm(dtype=bf16): float32 statistics with the fast
+    # variance E[y^2] - E[y]^2, then (y - mean) * (rsqrt(var + eps) * scale)
+    yf = y.float()
+    mu = yf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((yf * yf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    yr = torch.relu(_bf((yf - mu) * (torch.rsqrt(var + LN_EPS) * lns) + lnb))
+    delta = _bf(_bf(yr.float() @ w1.float()).float() + b1.float())
+    return _bf(x.float() + delta.float())
+
+
 class GnnLayer(nn.Module):
     """One self or cross layer; holds the per-head split weights of
-    gnn_kernel.split_layer_params as buffers."""
+    gnn_kernel.split_layer_params as buffers (one copy, used by the fused
+    kernel, its plain version and the unfused layer alike)."""
 
     _NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wm", "bm", "w0a", "w0b", "b0", "lns", "lnb", "w1", "b1")
 
-    def __init__(self, weights: tuple, num_heads: int, impl: str = "auto"):
+    def __init__(self, weights: tuple, cfg: SuperGlueConfig):
         super().__init__()
         for name, w in zip(self._NAMES, weights):
             self.register_buffer(name, w)
-        self.num_heads = num_heads
-        self.impl = impl
+        self.num_heads = cfg.num_heads
+        self.cfg = cfg
 
     def weights(self) -> tuple:
         return tuple(getattr(self, n) for n in self._NAMES)
 
     def forward(self, x, src, src_mask):
-        if self.impl == "plain":
+        impl = self.cfg.gnn_impl
+        if impl == "xla":
+            return gnn_layer_unfused(x, src, src_mask, self.weights(), self.num_heads, self.cfg.attention_impl,
+                                     self.cfg.softmax_dtype)
+        if impl == "plain":
             return gnn_layer_plain(x, src, src_mask, self.weights(), self.num_heads)
-        if self.impl != "auto":
-            raise ValueError(f"unknown gnn_impl {self.impl!r}")
+        if impl != "auto":
+            raise ValueError(f"unknown gnn_impl {impl!r}")
         return gnn_layer(x, src, src_mask, self.weights(), self.num_heads)
 
 

@@ -3,8 +3,9 @@ frontend/superpoint.py).
 
 A VGG encoder (optionally behind a space-to-depth stem), a 65-channel
 detector head (8x8 cells + dustbin) and a 256-d descriptor head. Keypoint
-selection is dense NMS + exact top-k into fixed ``max_keypoints`` slots with
-a validity mask, then bilinear descriptor sampling on the coarse grid. Images
+selection is NMS pooled per 4x4 block (the select kernel, ``select_kernel.py``)
++ exact top-k into fixed ``max_keypoints`` slots with a validity mask, then
+bilinear descriptor sampling on the coarse grid. Images
 are (B, H, W) in [0, 1] for the network; convolutions run in ``cfg.dtype``
 with each conv's bias added after its output is rounded, as flax.linen.Conv
 does.
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from forest_slam_tpu_torch.utils.filters import conv2d_separable, maxpool2d_same
+from forest_slam_tpu_torch.frontend.select_kernel import BLOCK, BORDER, nms_block_max, nms_block_max_plain, nms_kept_plain
+from forest_slam_tpu_torch.utils.filters import conv2d_separable
 
 
 class SuperPointConfig(NamedTuple):
@@ -31,6 +33,10 @@ class SuperPointConfig(NamedTuple):
     stem_stride: int = 1
     desc_sample_dtype: torch.dtype = torch.bfloat16
     subpixel: str = "none"  # "none", "com3" or "com5"
+    # NMS + block pooling: "auto" launches the select kernel for CUDA heat
+    # (its plain version for CPU heat); "plain" takes the plain version on
+    # any device. Shapes off the block path take the dense top-k either way.
+    nms_backend: str = "auto"
 
 
 class SuperPointFeatures(NamedTuple):
@@ -164,29 +170,29 @@ def subpixel_com(heat, xy, valid, radius: int = 1):
     return xy + torch.clamp(off, -lim, lim) * valid[..., None]
 
 
+def block_path(cfg: SuperPointConfig, H: int, W: int) -> bool:
+    """Selection runs over 4x4 block maxima (superpoint.py:321-326): after
+    NMS of radius >= 3 a block holds at most one survivor, ties excepted."""
+    b = BLOCK
+    return cfg.nms_radius >= b - 1 and H % b == 0 and W % b == 0 and (H // b) * (W // b) >= cfg.max_keypoints
+
+
 def select_keypoints(heat, coarse_desc, cfg: SuperPointConfig) -> SuperPointFeatures:
     """(B, H, W) heat maps -> fixed-size keypoint sets: 9x9 NMS, threshold,
     a 4 px border, exact top-k over 4x4 block maxima (superpoint.py's XLA
-    path with topk_method="exact")."""
+    path with topk_method="exact"), or over all pixels where the block path
+    does not apply."""
+    if cfg.nms_backend not in ("auto", "plain"):
+        raise ValueError(f"unknown nms_backend {cfg.nms_backend!r}")
     B, H, W = heat.shape
     K = cfg.max_keypoints
-    b = 4
-    nms = maxpool2d_same(heat, 2 * cfg.nms_radius + 1)
-    kept = torch.where((heat >= nms) & (heat > cfg.keypoint_threshold), heat, torch.zeros_like(heat))
-    ys = torch.arange(H, device=heat.device)[:, None]
-    xs = torch.arange(W, device=heat.device)[None, :]
-    bb = 4
-    interior = (ys >= bb) & (ys < H - bb) & (xs >= bb) & (xs < W - bb)
-    kept = torch.where(interior, kept, torch.zeros_like(kept))
-    if cfg.nms_radius >= b - 1 and H % b == 0 and W % b == 0 and (H // b) * (W // b) >= K:
-        Hb, Wb = H // b, W // b
-        blocks = kept.reshape(B, Hb, b, Wb, b).permute(0, 1, 3, 2, 4).reshape(B, Hb * Wb, b * b)
-        vals, bidx = torch.topk(blocks.max(dim=-1).values, K, dim=1)
-        local = torch.argmax(blocks.gather(1, bidx[..., None].expand(-1, -1, b * b)), dim=-1)
-        yy = torch.div(bidx, Wb, rounding_mode="floor") * b + torch.div(local, b, rounding_mode="floor")
-        xx = (bidx % Wb) * b + local % b
-        idx = yy * W + xx
+    if block_path(cfg, H, W):
+        pool = nms_block_max if cfg.nms_backend == "auto" else nms_block_max_plain
+        bvals, bidx = pool(heat.contiguous(), cfg.nms_radius, cfg.keypoint_threshold, BORDER)
+        vals, t = torch.topk(bvals.reshape(B, -1), K, dim=1)
+        idx = bidx.reshape(B, -1).gather(1, t).long()
     else:
+        kept = nms_kept_plain(heat, cfg.nms_radius, cfg.keypoint_threshold, BORDER)
         vals, idx = torch.topk(kept.reshape(B, H * W), K, dim=1)
     valid = vals > 0.0
     xy = torch.stack([(idx % W).float(), torch.div(idx, W, rounding_mode="floor").float()], dim=-1)

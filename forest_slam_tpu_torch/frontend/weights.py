@@ -59,7 +59,7 @@ def superglue_from_jax(sg_params: dict, cfg: SuperGlueConfig) -> SuperGlue:
     for i in range(cfg.gnn_layers):
         for kind in ("self", "cross"):
             name = f"{kind}_{i}"
-            layers[name] = GnnLayer(split_layer_params(sg_params[name], cfg.num_heads), cfg.num_heads, cfg.gnn_impl)
+            layers[name] = GnnLayer(split_layer_params(sg_params[name], cfg.num_heads), cfg)
     sg = SuperGlue(cfg, layers)
 
     def dense(lin, dp):
@@ -85,10 +85,13 @@ def params_from_jax(tree: dict, cfg: LearnedFrontendConfig) -> LearnedFrontend:
 
 def load_learned_frontend(path: str = FLAGSHIP_PATH, image_shape=(600, 960), max_keypoints: int = 1024,
                           device="cuda", superpoint_overrides: dict | None = None,
-                          superglue_overrides: dict | None = None) -> LearnedFrontend:
+                          superglue_overrides: dict | None = None, scales=(1.0,)) -> LearnedFrontend:
     """Build a LearnedFrontend matching a checkpoint's ``__meta__`` (stem
     stride, GNN depth, Sinkhorn iterations, sub-pixel readout) and load its
-    weights onto ``device``."""
+    weights onto ``device``. ``superglue_overrides`` take SuperGlueConfig
+    fields (gnn_impl, attention_impl, softmax_dtype, ...; a smaller
+    gnn_layers loads the first layer pairs); ``scales`` are the extraction
+    octaves."""
     meta, tree = read_checkpoint(path)
     stride = int(meta.get("stem_stride", 1))
     H, W = image_shape
@@ -98,10 +101,10 @@ def load_learned_frontend(path: str = FLAGSHIP_PATH, image_shape=(600, 960), max
         stem_stride=stride, max_keypoints=max_keypoints,
         subpixel=str(meta.get("subpixel", "none")), **(superpoint_overrides or {}),
     )
-    sg = SuperGlueConfig(
-        gnn_layers=int(meta.get("gnn_layers", 9)),
-        sinkhorn_iterations=int(meta.get("sinkhorn_iterations", 20)),
+    sg = SuperGlueConfig(**{
+        "gnn_layers": int(meta.get("gnn_layers", 9)),
+        "sinkhorn_iterations": int(meta.get("sinkhorn_iterations", 20)),
         **(superglue_overrides or {}),
-    )
-    fe = params_from_jax(tree, LearnedFrontendConfig(superpoint=sp, superglue=sg))
+    })
+    fe = params_from_jax(tree, LearnedFrontendConfig(superpoint=sp, superglue=sg, scales=tuple(scales)))
     return fe.to(device)

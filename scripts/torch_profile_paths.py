@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's two main paths on one GPU.
+"""Where the time goes in the PyTorch/CUDA port's paths on one GPU.
 
 Run from the repository root with no arguments:
 
     python3 scripts/torch_profile_paths.py
 
-It drives the ORB path and the learned path of chip_smoke.py (the same
-960x600 corridor clip, the same configurations) three times each after a
+It drives the four paths of chip_smoke.py with their configurations: ORB,
+learned and learned with the unfused GNN on the 960x600 corridor clip, and
+the lowres gate on 24 corridor frames at 224x160, three times each after a
 warm-up run: once plain for the wall time, once with every phase
 synchronised and timed on the host clock (per-frame features and depth,
 per-pair matching and PnP, chaining), and, after both paths have run so,
@@ -111,21 +112,31 @@ def main() -> int:
     orb_cfg = stereo.StereoConfig(orb=OrbConfig(n_features=cs.ORB_FEATURES, n_levels=cs.ORB_LEVELS),
                                   max_match_distance=64, n_hypotheses=1024, compose_mode="odometry",
                                   match_refine_radius=0)
-    fe = load_learned_frontend(FLAGSHIP_PATH, (cs.H, cs.W), cs.K, device=dev)
     sp_cfg = stereo.StereoConfig(n_hypotheses=1024, compose_mode="odometry", match_refine_radius=12)
-    sp_front = learned_frontend(fe)
+    gl, gr, _, rig_g = cs.render_frames(dev, cs.LOWRES_H, cs.LOWRES_W, cs.LOWRES_FRAMES)
+    low_cfg = stereo.StereoConfig(n_hypotheses=cs.LOWRES_K, compose_mode="odometry", match_refine_radius=12)
 
-    def run_learned():
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
-        return stereo.run_stereo_vo_device(il, ir, rig, sp_cfg, g, sp_front, cs.FRAME_BATCH, cs.PAIR_BATCH)
+    def learned(images, stereo_rig, cfg, batch, shape, k, **load):
+        front = learned_frontend(load_learned_frontend(FLAGSHIP_PATH, shape, k, device=dev, **load))
+
+        def run():
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            return stereo.run_stereo_vo_device(*images, stereo_rig, cfg, g, front, batch, batch)
+        return run
 
     paths = {
         "orb": lambda: stereo.run_stereo_vo(il, ir, ts, rig, orb_cfg, seed=0, frame_batch=cs.FRAME_BATCH,
                                             pair_batch=cs.PAIR_BATCH),
-        "learned": run_learned,
+        "learned": learned((il, ir), rig, sp_cfg, cs.FRAME_BATCH, (cs.H, cs.W), cs.K),
+        "unfused": learned((il, ir), rig, sp_cfg, cs.FRAME_BATCH, (cs.H, cs.W), cs.K,
+                           superglue_overrides={"gnn_impl": "xla"}),
+        "lowres": learned((gl, gr), rig_g, low_cfg, cs.LOWRES_FRAMES, (cs.LOWRES_H, cs.LOWRES_W), cs.LOWRES_K,
+                          scales=cs.LOWRES_SCALES),
     }
-    result = {"device": smi, "pairs": cs.N_FRAMES - 1, "paths": {}}
+    pairs = {"orb": cs.N_FRAMES - 1, "learned": cs.N_FRAMES - 1, "unfused": cs.N_FRAMES - 1,
+             "lowres": cs.LOWRES_FRAMES - 1}
+    result = {"device": smi, "pairs": pairs, "paths": {}}
     for name, run in paths.items():
         run()  # warm-up
         torch.cuda.synchronize()
@@ -134,7 +145,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.time() - t
         phases, wall_phased = timed_phases(run)
-        print(f"{name}: {wall:.4f} s for {cs.N_FRAMES - 1} pairs; synchronised phases "
+        print(f"{name}: {wall:.4f} s for {pairs[name]} pairs; synchronised phases "
               + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items()) + f" (of {wall_phased:.4f} s)", flush=True)
         result["paths"][name] = dict(wall_s=wall, phases_s=phases, phased_wall_s=wall_phased)
     # profiles last: launches stay slower once the profiler has run

@@ -6,15 +6,20 @@ card: ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
 chip_smoke.py: integer-valued images make the SAD kernels exact; the GNN
 layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4; the
 detection kernel keeps the same finite mask, values to rtol 1e-5 and equal
-indices (it sums Harris in the plain version's order, so it is exact).
+indices (it sums Harris in the plain version's order, so it is exact); the
+select kernel only compares, so it is bit-exact; the attention kernel's bf16
+output within 2^-7 of its largest entry, mean 1e-3, as
+tests/test_torch_attention.py holds the plain version to the reference.
 """
 
 import pytest
 import torch
 
+from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward, masked_attention, masked_attention_plain
 from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_plain
 from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain, split_layer_params
 from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
 from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
 from forest_slam_tpu_torch.stereo.sparse import prefilter
@@ -135,3 +140,78 @@ def test_detect_kernel_rejects_what_it_does_not_take(cuda):
         detect_pooled(imgs.double())
     with pytest.raises(ValueError, match="contiguous float32"):
         detect_pooled(torch.zeros((1, 40, 80), device=dev)[:, :, ::2])
+
+
+def _peaky_heat(g, dev, B, H, W):
+    heat = torch.rand((B, H, W), generator=g, device=dev) * 0.004
+    peaks = torch.rand((B, H, W), generator=g, device=dev)
+    return torch.where(peaks > 0.99, peaks, heat).contiguous()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 128), (3, 100, 172), (1, 160, 224), (2, 600, 960)])
+def test_select_kernel_bit_exact(cuda, shape):
+    dev, g = cuda
+    heat = _peaky_heat(g, dev, *shape)
+    heat[0, :8, :8] = 0.9  # a peak run into the border and the image edge
+    heat[-1, 40:44, 60:64] = 0.5  # equal survivors: the tie rule
+    n = nms_block_max.launches
+    vals, idx = nms_block_max(heat)
+    assert nms_block_max.launches == n + 1
+    ref_v, ref_i = nms_block_max_plain(heat)
+    assert int((ref_v > 0).sum()) > 10
+    assert torch.equal(vals, ref_v) and torch.equal(idx, ref_i)
+
+
+def test_select_kernel_negative_heat_and_radius(cuda):
+    """Out-of-image pixels never win a window maximum, whatever the sign of
+    the heat; other NMS radii."""
+    dev, g = cuda
+    heat = (torch.rand((2, 48, 80), generator=g, device=dev) - 0.5).contiguous()
+    for r in (0, 3, 8):
+        got = nms_block_max(heat, nms_radius=r, threshold=-1.0)
+        ref = nms_block_max_plain(heat, nms_radius=r, threshold=-1.0)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    with pytest.raises(ValueError, match="radius"):
+        nms_block_max(heat, nms_radius=9)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        nms_block_max(heat[:, :46].contiguous())
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 128, 128, 128), (3, 4, 100, 77, 77), (16, 4, 1024, 1024, 1024)])
+def test_attention_kernel(cuda, shape):
+    dev, g = cuda
+    B, h, K, S, dh = shape[0], shape[1], shape[2], shape[3], 64
+    q = (torch.randn((B, h, K, dh), generator=g, device=dev) * 2).to(torch.bfloat16)
+    k = (torch.randn((B, h, S, dh), generator=g, device=dev) * 2).to(torch.bfloat16)
+    v = torch.randn((B, h, S, dh), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.rand((B, S), generator=g, device=dev) < 0.7
+    mask[-1] = False  # a batch whose sources are all masked
+    n = attention_forward.launches
+    got = attention_forward(q, k, v, mask, 0.125).float()
+    assert attention_forward.launches == n + 1
+    ref = masked_attention_plain(q, k, v, mask, 0.125).float()
+    assert torch.isfinite(got).all()
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 2.0 ** -7 * scale
+    assert (got - ref).abs().mean().item() <= 1e-3 * max(scale, 1.0)
+
+
+def test_attention_function_gradients(cuda):
+    dev, g = cuda
+    B, h, K, dh = 2, 4, 128, 64
+    ts = [(torch.randn((B, h, K, dh), generator=g, device=dev) * s).to(torch.bfloat16).requires_grad_()
+          for s in (2.0, 2.0, 1.0)]
+    mask = torch.rand((B, K), generator=g, device=dev) < 0.7
+    gout = torch.randn((B, h, K, dh), generator=g, device=dev)
+    n = attention_forward.launches
+    (masked_attention(*ts, mask, 0.125).float() * gout).sum().backward()
+    assert attention_forward.launches == n + 1
+    refs = [t.detach().clone().requires_grad_() for t in ts]
+    (masked_attention_plain(*refs, mask, 0.125).float() * gout).sum().backward()
+    for t, r in zip(ts, refs):
+        # the backward is the same recompute on both sides: only the
+        # forward's kernel differs, and it enters no gradient
+        assert torch.equal(t.grad, r.grad)
+    with pytest.raises(ValueError, match="64-wide"):
+        attention_forward(*(torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16, device=dev),) * 3,
+                          torch.ones((1, 8), dtype=torch.bool, device=dev), 0.125)

@@ -27,6 +27,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -42,7 +43,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25
+    assert n_modules >= 37
+    names = out.stdout.splitlines()[1].split()
+    for mod in ("frontend.select_kernel", "frontend.attention_kernel", "frontend.learned", "frontend.superglue"):
+        assert "forest_slam_tpu_torch." + mod in names
 
 
 def _run_smoke(cwd):
@@ -85,6 +89,6 @@ def test_library_name_follows_sources_and_flags(monkeypatch):
 
     a = _build.library_path()
     assert a == _build.library_path()
-    assert len(_build.sources()) == 5
+    assert len(_build.sources()) == 7
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DEXTRA",))
     assert _build.library_path() != a
