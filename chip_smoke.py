@@ -16,7 +16,10 @@ Phases, each printing one line with its elapsed seconds:
    960x600 frame, a batch of 8 frames each; the select kernel at a batch of
    8 960x600 heat maps and at the lowres gate's three octaves of 24 frames;
    the attention kernel at 16 sequences of 4 heads, K=S=1024, beside
-   ``scaled_dot_product_attention`` as a yardstick);
+   ``scaled_dot_product_attention`` as a yardstick, and at a ragged K=150,
+   S=130; the GNN layer kernel at 16 sequences of 1024 x 256, at the lowres
+   gate's 48 of 512 x 256 and at a ragged K=150, S=130; the ragged shapes
+   with one sequence whose sources are all masked);
 4. ORB path: renders a 960x600 corridor clip on the card and runs stereo VO
    through ``run_stereo_vo`` with its default ORB front end (512 features,
    8 levels, Hamming distance <= 64, 1024 DLT-6 hypotheses, no refinement),
@@ -93,18 +96,20 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of fn() after one warm-up call."""
+def time_ms(fn, reps: int = 5, launches: int = 1) -> float:
+    """Median over reps CUDA-event timings of fn(), after one warm-up call;
+    each timing holds `launches` calls back to back and is divided by it."""
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return sorted(times)[len(times) // 2]
 
 
@@ -141,15 +146,24 @@ def check_sparse(dev, gen):
     )
 
 
-def check_gnn(dev, gen, fe):
+# the fused layer's other shapes: the lowres gate's (48 sequences of
+# K = S = 512, 18 launches there) and a ragged K != S with one sequence whose
+# sources are all masked; (N, K, S, all_masked)
+GNN_EXTRA_SHAPES = ((2 * LOWRES_FRAMES, LOWRES_K, LOWRES_K, False), (4, 150, 130, True))
+ATTENTION_RAGGED = (3, HEADS, 150, 130)  # (B, h, K, S), the last sequence fully masked
+
+
+def gnn_case(dev, gen, ws, heads, N, K_, S, all_masked):
+    """The fused layer against its plain version at one shape: (max error,
+    mean error, largest |ref|, ok, inputs)."""
     from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
 
-    layer = fe.superglue.layers["cross_0"]
-    ws, heads = layer.weights(), layer.num_heads
-    N, D = 2 * PAIR_BATCH, 256
-    x = torch.randn((N, K, D), generator=gen, device=dev).to(torch.bfloat16)
-    src = torch.randn((N, K, D), generator=gen, device=dev).to(torch.bfloat16)
-    mask = torch.rand((N, K), generator=gen, device=dev) < 0.7
+    D = 256
+    x = torch.randn((N, K_, D), generator=gen, device=dev).to(torch.bfloat16)
+    src = torch.randn((N, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.rand((N, S), generator=gen, device=dev) < 0.7
+    if all_masked:
+        mask[-1] = False
     got = gnn_layer(x, src, mask, ws, heads).float()
     ref = gnn_layer_plain(x, src, mask, ws, heads).float()
     scale = max(1.0, ref.abs().max().item())
@@ -157,15 +171,31 @@ def check_gnn(dev, gen, fe):
     mean_err = (got - ref).abs().mean().item()
     # bf16 outputs: sums in another order may flip a rounding, a bf16 ulp
     # (2^-8 relative) carried through the layer's later products
-    ok = err <= 0.05 * scale and mean_err <= 2e-3 * scale
+    ok = bool(torch.isfinite(got).all().item()) and err <= 0.05 * scale and mean_err <= 2e-3 * scale
+    return err, mean_err, scale, ok, (x, src, mask)
+
+
+def check_gnn(dev, gen, fe):
+    from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
+
+    layer = fe.superglue.layers["cross_0"]
+    ws, heads = layer.weights(), layer.num_heads
+    N, D = 2 * PAIR_BATCH, 256
+    err, mean_err, _, ok, (x, src, mask) = gnn_case(dev, gen, ws, heads, N, K, K, False)
+    extra = []
+    for n_, k_, s_, masked in GNN_EXTRA_SHAPES:
+        e, me, top, o, _ = gnn_case(dev, gen, ws, heads, n_, k_, s_, masked)
+        extra.append(dict(shape=[n_, k_, s_, D], all_masked_sequence=masked, max_abs_err=e, mean_abs_err=me,
+                          max_abs_ref=top, ok=o))
+        ok &= o
     ops = 2 * N * K * D * D * 4 + 2 * 2 * N * K * K * D + 2 * N * K * (2 * D) * (2 * D) + 2 * N * K * 2 * D * D
-    nbytes = 2 * (3 * N * K * D) + N * K * 4 + sum(t.numel() * t.element_size() for t in ws)
+    nbytes = 2 * (3 * N * K * D) + N * K + sum(t.numel() * t.element_size() for t in ws)
     b_ms, b_by = bound(nbytes, ops, BF16_OPS)
     return dict(
         name="gnn_layer", source="forest_slam_tpu_torch/csrc/gnn_layer.cu",
         replaces="forest_slam_tpu/frontend/pallas_gnn.py:214",
         tolerance="max <= 0.05 * max|ref|, mean <= 2e-3 * max|ref|",
-        max_abs_err=err, ok=ok,
+        max_abs_err=err, mean_abs_err=mean_err, ok=ok, other_shapes=extra,
         ms=time_ms(lambda: gnn_layer(x, src, mask, ws, heads)),
         plain_ms=time_ms(lambda: gnn_layer_plain(x, src, mask, ws, heads)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -333,17 +363,18 @@ def check_select(dev, gen):
     )
 
 
-def check_attention(dev, gen):
-    import torch.nn.functional as F
-
+def attention_case(dev, gen, shape):
+    """The attention kernel against its plain version on q, k, v of
+    (B, h, K, S) with the last sequence's sources all masked: (max error,
+    mean error, largest |ref|, ok, error of the masked sequence against the
+    mean of its v, inputs)."""
     from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward, masked_attention_plain
 
-    B = 2 * PAIR_BATCH  # both images of a pair batch in one launch
-    shape = (B, HEADS, K, HEAD_DIM)
-    q = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
-    k = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
-    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    mask = torch.rand((B, K), generator=gen, device=dev) < 0.7
+    B, h, K_, S = shape
+    q = (torch.randn((B, h, K_, HEAD_DIM), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    k = (torch.randn((B, h, S, HEAD_DIM), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    v = torch.randn((B, h, S, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.rand((B, S), generator=gen, device=dev) < 0.7
     mask[-1] = False  # a sequence whose sources are all masked: its queries average v
     scale = 1.0 / HEAD_DIM ** 0.5
     got = attention_forward(q, k, v, mask, scale).float()
@@ -354,6 +385,17 @@ def check_attention(dev, gen):
     # bf16 probabilities and output: sums in another order may flip a rounding
     ok = bool(torch.isfinite(got).all().item()) and err <= 2.0 ** -7 * top and mean_err <= 1e-3 * max(top, 1.0)
     masked_row_err = (got[-1] - v[-1].float().mean(dim=1, keepdim=True)).abs().max().item()
+    return err, mean_err, top, ok, masked_row_err, (q, k, v, mask, scale)
+
+
+def check_attention(dev, gen):
+    import torch.nn.functional as F
+
+    from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward, masked_attention_plain
+
+    B = 2 * PAIR_BATCH  # both images of a pair batch in one launch
+    err, mean_err, _, ok, masked_row_err, (q, k, v, mask, scale) = attention_case(dev, gen, (B, HEADS, K, K))
+    r_err, r_mean, r_top, r_ok, r_masked, _ = attention_case(dev, gen, ATTENTION_RAGGED)
     amask = mask[:, None, None, :]
     sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale)
     b_ms, b_by = bound(4 * q.numel() * 2 + mask.numel(), 4 * B * HEADS * K * K * HEAD_DIM, BF16_OPS)
@@ -361,7 +403,9 @@ def check_attention(dev, gen):
         name="attention", source="forest_slam_tpu_torch/csrc/attention.cu",
         replaces="forest_slam_tpu/frontend/pallas_attention.py:149",
         tolerance="max <= 2^-7 * max|ref|, mean <= 1e-3 * max|ref|",
-        max_abs_err=err, mean_abs_err=mean_err, masked_row_err=masked_row_err, ok=ok,
+        max_abs_err=err, mean_abs_err=mean_err, masked_row_err=masked_row_err, ok=ok and r_ok,
+        ragged=dict(shape=list(ATTENTION_RAGGED), max_abs_err=r_err, mean_abs_err=r_mean, max_abs_ref=r_top,
+                    masked_row_err=r_masked, ok=r_ok),
         sdpa_nan_rows=bool(torch.isnan(sdpa[-1]).any().item()),
         ms=time_ms(lambda: attention_forward(q, k, v, mask, scale)),
         plain_ms=time_ms(lambda: masked_attention_plain(q, k, v, mask, scale)),
@@ -505,7 +549,16 @@ def main() -> int:
     att = by_name["attention"]
     log(f"  attention at ({2 * PAIR_BATCH}, {HEADS}, {K}, {HEAD_DIM}): mean error {att['mean_abs_err']:.3g}; the "
         f"fully masked sequence averages v to {att['masked_row_err']:.3g}; scaled_dot_product_attention gives "
-        f"NaN there: {att['sdpa_nan_rows']}")
+        f"NaN there: {att['sdpa_nan_rows']}; {att['ms'] / att['library_ms']:.2f}x its time")
+    rag = att["ragged"]
+    log(f"  attention at (B, h, K, S) = {tuple(rag['shape'])}: max error {rag['max_abs_err']:.6g} of "
+        f"{rag['max_abs_ref']:.4g}, mean {rag['mean_abs_err']:.3g}, fully masked sequence to "
+        f"{rag['masked_row_err']:.3g}: {'PASS' if rag['ok'] else 'FAIL'}")
+    gnn = by_name["gnn_layer"]
+    for o in gnn["other_shapes"]:
+        log(f"  gnn_layer at (N, K, S, D) = {tuple(o['shape'])}{', one sequence fully masked' if o['all_masked_sequence'] else ''}: "
+            f"max error {o['max_abs_err']:.6g} of {o['max_abs_ref']:.4g}, mean {o['mean_abs_err']:.3g}: "
+            f"{'PASS' if o['ok'] else 'FAIL'}")
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         print(f"FAIL: kernels disagree with their plain versions: {bad}", file=sys.stderr)

@@ -8,6 +8,9 @@ file; one more links them into one shared library under ``_build/`` (listed
 in ``.gitignore``), named by a hash of the sources and the flags. The library
 is built at first use, written under a temporary name and renamed into place,
 so an interrupted build leaves nothing that a later build would wait on.
+The headers the sources share (``csrc/*.cuh``, included by a quoted name
+from the same directory) feed the hash too, so an edit to one of them names
+a new library.
 """
 
 from __future__ import annotations
@@ -55,9 +58,13 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

@@ -15,26 +15,42 @@
 // casting to bf16 exactly where the TPU kernel does (pallas_gnn.py:103-152).
 //
 // What bounds it on the H100: operations. A layer call at N = 16 sequences
-// of K = S = 1024 does ~21 GFLOP of projections and MLP and ~13 GFLOP of
-// attention products against ~40 MB of traffic, far above the card's
-// ridge point. This first version is correct and simple, not fast: the
-// products run on the CUDA cores as shared-memory tiled float32 FMAs over
-// exact bf16 inputs (no tensor cores yet), in six launches per layer:
-//   1. q, k, v projections (one tiled GEMM launch each),
-//   2. attention: per (sequence, head, 64 queries) block, a first sweep over
-//      the sources for the row max and sum (online), a second for the
-//      normalised bf16 probabilities and their product with v,
-//   3. merge projection, 4. MLP0 over [x, merged] without the concat,
-//   5. LayerNorm + ReLU (one warp per row), 6. MLP1 + residual.
+// of K = S = 1024, D = 256 does 21.5 GFLOP of projections and MLP and 17.2
+// GFLOP of attention products against about 27 MB of traffic, far above
+// the card's ridge point: 0.0391 ms at 989 TFLOP/s. Every product runs on
+// the tensor cores (mma.sync.m16n8k16, bf16 operands, float32 sums), in six
+// launches per layer:
+//   1. q, k and v projections: one GEMM launch, blockIdx.z picks the
+//      projection (k and v both read src),
+//   2. attention: the shared core of attention_core.cuh on the (N*K, D)
+//      projections, token stride D, head h at column h*64,
+//   3. merge projection, 4. MLP0 over [x, merged] as two K-ranges of one
+//      GEMM (no concat), 5. LayerNorm + ReLU (one warp per row; it moves
+//      2 x 16 MB at the main shape, near the memory rate and a few percent
+//      of the layer, so it stays its own launch: fusing it into MLP0's
+//      epilogue would need whole 512-wide rows in one block), 6. MLP1 +
+//      residual.
+// The GEMM takes 128 x 128 output tiles (eight warps of 32 x 64) with a
+// three-stage cp.async ring of 128 x 32 A and 32 x 128 W tiles, ldmatrix
+// operands (W with .trans, since both weight layouts are row-major in k)
+// and the epilogue bf16(res + bf16(bf16(acc) + bias)). Every 64 columns of
+// a tile are one head of the head-split q/k/v weights, so no weight is
+// repacked. Tiles of 128 x 64 (four warps), of 128 x 128 and 128 x 256 with
+// warps of 64 x 64, and four stages were within 7% of this one on the H100
+// (scripts/torch_kernel_ab.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_core.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using attn_core::bf16;
+using attn_core::cp_async16;
+using attn_core::cp_async_commit;
+using attn_core::cp_async_wait;
+using attn_core::ldmatrix_x4;
+using attn_core::ldmatrix_x4_trans;
+using attn_core::mma_bf16;
 
-constexpr float kNeg = -1e9f;
 constexpr float kLnEps = 1e-6f;
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -44,190 +60,163 @@ __device__ __forceinline__ float round_bf(float v) {
 
 // ---------------------------------------------------------------- GEMM ---
 // C[m, n] = epilogue(sum_k A[m, k] W[k, n]) with
-//   A[m, k] = k < Ka ? A1[m, k] : A2[m, k - Ka]       (row-major, bf16)
-//   W[k, n] = k < Ka ? W1[k, n] : W2[k - Ka, n]       (head-split, bf16)
-// where a head-split weight (h, Kpart, dh) holds column n = h*dh + j at
-// [n / dh][k][n % dh] (dh = N for a plain row-major weight), and
+//   A[m, k] = k < ka ? a1[m, k] : a2[m, k - ka]       (row-major, bf16)
+//   W[k, n] = k < ka ? w1[k, n] : w2[k - ka, n]
+// where column n of a weight lies at w[(n / 64) * head_stride + k * ldw +
+// n % 64]: head_stride = kpart * 64, ldw = 64 for a head-split (h, kpart,
+// 64) weight, head_stride = 64, ldw = N for a row-major one; and
 //   epilogue(acc) = bf16(res + bf16(bf16(acc) + bias))   (res optional).
-constexpr int BM = 64, BN = 64, BK = 16;
+struct Gemm {
+  const bf16* a1;
+  const bf16* a2;
+  int ka;
+  const bf16* w1;
+  const bf16* w2;
+  long long head_stride;
+  int ldw;
+  const bf16* bias;
+  const bf16* res;
+  bf16* c;
+  int m, n, kd;
+};
 
-__global__ void __launch_bounds__(256)
-gemm_kernel(const bf16* __restrict__ A1, const bf16* __restrict__ A2,
-            const bf16* __restrict__ W1, const bf16* __restrict__ W2, int Ka,
-            int dh, const bf16* __restrict__ bias, const bf16* __restrict__ res,
-            bf16* __restrict__ C, int M, int N, int Kd) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+struct GemmBatch {
+  Gemm g[3];
+};
+
+// each warp computes a (16 MT) x 64 tile; WARPS_M x WARPS_N warps per block
+constexpr int MT = 2, WARPS_M = 4, WARPS_N = 2, GSTAGES = 3, BK = 32;
+constexpr int BM = 16 * MT * WARPS_M, BN = 64 * WARPS_N, GTHREADS = 32 * WARPS_M * WARPS_N;
+constexpr int LDA = BK + 8;  // 80-byte rows: ldmatrix's eight rows on distinct banks
+constexpr int LDW = BN + 8;  // 144-byte rows (and multiples)
+constexpr int kAStage = BM * LDA, kWStage = BK * LDW;
+constexpr int kGemmSmem = 2 * GSTAGES * (kAStage + kWStage);  // 56,832 bytes
+
+// grid (ceil(max N / BN), ceil(max M / BM), number of GEMMs)
+__global__ void __launch_bounds__(GTHREADS) gemm_kernel(const __grid_constant__ GemmBatch batch) {
+  const Gemm& p = batch.g[blockIdx.z];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int Kb = Kd - Ka;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if (m0 >= p.m || n0 >= p.n) return;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Ws = As + GSTAGES * kAStage;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp % WARPS_M) * 16 * MT, wn = (warp / WARPS_M) * 64;  // this warp's tile in the block's
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ktiles = p.kd / BK;
 
-  for (int k0 = 0; k0 < Kd; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BM * BK; idx += blockDim.x) {
-      const int mm = idx / BK, kk = idx % BK;
-      const int m = m0 + mm, k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < Kd)
-        v = k < Ka ? to_f(A1[(size_t)m * Ka + k])
-                   : to_f(A2[(size_t)m * Kb + (k - Ka)]);
-      As[kk][mm] = v;
+  auto load = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    const bool first = k0 < p.ka;
+    const int lda = first ? p.ka : p.kd - p.ka;
+    const bf16* a = first ? p.a1 + k0 : p.a2 + (k0 - p.ka);
+    bf16* as = As + st * kAStage;
+#pragma unroll
+    for (int it = 0; it < BM * BK / 8 / GTHREADS; ++it) {
+      const int i = tid + it * GTHREADS, r = i >> 2, c = (i & 3) * 8;
+      const bool in = m0 + r < p.m;
+      cp_async16(as + r * LDA + c, a + (size_t)(in ? m0 + r : 0) * lda + c, in);
     }
-    for (int idx = threadIdx.x; idx < BK * BN; idx += blockDim.x) {
-      const int kk = idx / BN, nn = idx % BN;
-      const int k = k0 + kk, n = n0 + nn;
-      float v = 0.f;
-      if (k < Kd && n < N) {
-        const int h = n / dh, j = n % dh;
-        v = k < Ka ? to_f(W1[((size_t)h * Ka + k) * dh + j])
-                   : to_f(W2[((size_t)h * Kb + (k - Ka)) * dh + j]);
+    const bf16* w = first ? p.w1 + (size_t)k0 * p.ldw : p.w2 + (size_t)(k0 - p.ka) * p.ldw;
+    bf16* ws = Ws + st * kWStage;
+#pragma unroll
+    for (int it = 0; it < BK * BN / 8 / GTHREADS; ++it) {
+      const int i = tid + it * GTHREADS, r = i / (BN / 8), c = (i % (BN / 8)) * 8, n = n0 + c;
+      const bool in = n < p.n;
+      cp_async16(ws + r * LDW + c, w + (in ? (size_t)(n / 64) * p.head_stride + (size_t)r * p.ldw + n % 64 : 0), in);
+    }
+  };
+
+  float acc[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<GSTAGES - 2>();
+    __syncthreads();  // tile kt visible; every warp is done with tile kt - 1's stage
+    if (kt + GSTAGES - 1 < ktiles) load(kt + GSTAGES - 1, (kt + GSTAGES - 1) % GSTAGES);
+    cp_async_commit();
+    const bf16* as = As + (kt % GSTAGES) * kAStage;
+    const bf16* ws = Ws + (kt % GSTAGES) * kWStage;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(af[mt], as + (wm + 16 * mt + (lane & 15)) * LDA + 16 * kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, ws + (16 * kk + (lane & 15)) * LDW + wn + 16 * np + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+        }
       }
-      Ws[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      float v = round_bf(round_bf(acc[i][j]) + to_f(bias[n]));
-      if (res) v = to_f(res[(size_t)m * N + n]) + v;
-      C[(size_t)m * N + n] = __float2bfloat16(v);
     }
   }
+  cp_async_wait<0>();
+  if (n0 + wn >= p.n) return;  // N is a multiple of 64: a warp's columns are all in or all out
+
+  float2 bias[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    bias[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.bias + n0 + wn + 8 * j + 2 * t4));
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + wm + 16 * mt + g + 8 * r;
+      if (row >= p.m) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * t4;
+        float v0 = round_bf(round_bf(acc[mt][j][2 * r]) + bias[j].x);
+        float v1 = round_bf(round_bf(acc[mt][j][2 * r + 1]) + bias[j].y);
+        const size_t at = (size_t)row * p.n + col;
+        if (p.res) {
+          v0 += to_f(p.res[at]);
+          v1 += to_f(p.res[at + 1]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p.c + at) = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+}
+
+attn_core::SmemReservation gemm_smem, attention_smem;
+
+int run_gemms(const GemmBatch& batch, int count, cudaStream_t stream) {
+  int n = 0, m = 0;
+  for (int i = 0; i < count; ++i) {
+    n = batch.g[i].n > n ? batch.g[i].n : n;
+    m = batch.g[i].m > m ? batch.g[i].m : m;
+  }
+  const cudaError_t err = gemm_smem.allow((const void*)gemm_kernel, kGemmSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, count);
+  gemm_kernel<<<grid, GTHREADS, kGemmSmem, stream>>>(batch);
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------- attention ---
-constexpr int AQ = 64;   // queries per block
-constexpr int AS = 64;   // sources per tile
-constexpr int DH = 64;   // head width
-constexpr int LD = DH + 1;
-
-// grid (ceil(K / AQ), heads, N); 256 threads: thread t owns query row
-// t / 4 and tile columns (t % 4) + 4 j, j < 16.
-__global__ void __launch_bounds__(256)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ mask,
-                 bf16* __restrict__ o, int K, int S, int D, float scale) {
-  extern __shared__ float sm[];
-  float* Qs = sm;               // (AQ, LD)
-  float* Ks = Qs + AQ * LD;     // (AS, LD)
-  float* Vs = Ks + AS * LD;     // (AS, LD)
-  float* Ps = Vs + AS * LD;     // (AQ, AS + 1)
-  float* Ms = Ps + AQ * (AS + 1);  // (AS,)
-  const int n = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * AQ;
-  const int tid = threadIdx.x;
-  const int row = tid / 4, cq = tid % 4;
-  const bf16* qb = q + (size_t)n * K * D + h * DH;
-  const bf16* kb = k + (size_t)n * S * D + h * DH;
-  const bf16* vb = v + (size_t)n * S * D + h * DH;
-  const float* mb = mask + (size_t)n * S;
-
-  for (int idx = tid; idx < AQ * DH; idx += blockDim.x) {
-    const int rr = idx / DH, d = idx % DH;
-    Qs[rr * LD + d] = (q0 + rr < K) ? to_f(qb[(size_t)(q0 + rr) * D + d]) : 0.f;
-  }
-
-  // sweep 1: row max and sum of exp (online, per thread, then merged)
-  float m = -INFINITY, l = 0.f;
-  for (int s0 = 0; s0 < S; s0 += AS) {
-    __syncthreads();
-    for (int idx = tid; idx < AS * DH; idx += blockDim.x) {
-      const int rr = idx / DH, d = idx % DH;
-      Ks[rr * LD + d] = (s0 + rr < S) ? to_f(kb[(size_t)(s0 + rr) * D + d]) : 0.f;
-    }
-    for (int idx = tid; idx < AS; idx += blockDim.x)
-      Ms[idx] = (s0 + idx < S) ? mb[s0 + idx] : 0.f;
-    __syncthreads();
-    float lg[16];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = cq + 4 * j;
-      float dot = 0.f;
-      for (int d = 0; d < DH; ++d) dot = fmaf(Qs[row * LD + d], Ks[c * LD + d], dot);
-      lg[j] = (Ms[c] > 0.5f) ? dot * scale : kNeg;
-      if (s0 + c < S) mt = fmaxf(mt, lg[j]);
-    }
-    if (mt > -INFINITY) {
-      const float mn = fmaxf(m, mt);
-      float add = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (s0 + cq + 4 * j < S) add += expf(lg[j] - mn);
-      l = l * expf(m - mn) + add;
-      m = mn;
-    }
-  }
-  // merge the four threads of a row
-  float M = m;
-  M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, 1));
-  M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, 2));
-  float L = (m > -INFINITY) ? l * expf(m - M) : 0.f;
-  L += __shfl_xor_sync(0xffffffffu, L, 1);
-  L += __shfl_xor_sync(0xffffffffu, L, 2);
-  const float denom = fmaxf(L, 1e-30f);
-
-  // sweep 2: p = bf16(exp(logit - M) / denom), o += p @ v
-  float acc[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
-  for (int s0 = 0; s0 < S; s0 += AS) {
-    __syncthreads();
-    for (int idx = tid; idx < AS * DH; idx += blockDim.x) {
-      const int rr = idx / DH, d = idx % DH;
-      const bool in = s0 + rr < S;
-      Ks[rr * LD + d] = in ? to_f(kb[(size_t)(s0 + rr) * D + d]) : 0.f;
-      Vs[rr * LD + d] = in ? to_f(vb[(size_t)(s0 + rr) * D + d]) : 0.f;
-    }
-    for (int idx = tid; idx < AS; idx += blockDim.x)
-      Ms[idx] = (s0 + idx < S) ? mb[s0 + idx] : 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = cq + 4 * j;
-      float p = 0.f;
-      if (s0 + c < S) {
-        float dot = 0.f;
-        for (int d = 0; d < DH; ++d) dot = fmaf(Qs[row * LD + d], Ks[c * LD + d], dot);
-        const float lgt = (Ms[c] > 0.5f) ? dot * scale : kNeg;
-        p = round_bf(expf(lgt - M) / denom);
-      }
-      Ps[row * (AS + 1) + c] = p;
-    }
-    __syncthreads();
-    for (int s = 0; s < AS; ++s) {
-      const float p = Ps[row * (AS + 1) + s];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] = fmaf(p, Vs[s * LD + cq + 4 * j], acc[j]);
-    }
-  }
-  if (q0 + row < K) {
-    bf16* ob = o + ((size_t)n * K + q0 + row) * D + h * DH;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) ob[cq + 4 * j] = __float2bfloat16(acc[j]);
-  }
+// grid (ceil(K / 64), heads, N); the shared core on head h of sequence n
+__global__ void __launch_bounds__(attn_core::THREADS)
+gnn_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const unsigned char* __restrict__ mask, bf16* __restrict__ o, int K, int S, int D,
+                     float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = blockIdx.z, h = blockIdx.y;
+  const size_t qo = (size_t)n * K * D + h * attn_core::DH, kv = (size_t)n * S * D + h * attn_core::DH;
+  attn_core::attend(q + qo, k + kv, v + kv, D, D, mask + (size_t)n * S, o + qo, D, K, S, scale,
+                    blockIdx.x * attn_core::QT, smem);
 }
 
 // ----------------------------------------------------- LayerNorm + ReLU ---
@@ -258,23 +247,15 @@ __global__ void layernorm_relu_kernel(const bf16* __restrict__ y,
   }
 }
 
-int gemm(const bf16* A1, const bf16* A2, const bf16* W1, const bf16* W2,
-         int Ka, int dh, const bf16* bias, const bf16* res, bf16* C, int M,
-         int N, int Kd, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<<<grid, 256, 0, stream>>>(A1, A2, W1, W2, Ka, dh, bias, res, C,
-                                        M, N, Kd);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// x (N, K, D), src (N, S, D) bf16; mask (N, S) f32 0/1. Weights as
-// split_layer_params lays them out: wq/wk/wv (h, D, dh), bq/bk/bv (h*dh),
-// wm (h*dh, D), bm (D), w0a/w0b (D, 2D), b0 (2D), ln_scale/ln_bias (2D) f32,
-// w1 (2D, D), b1 (D). Scratch: qs (N*K, D), ks/vs (N*S, D), os/ms (N*K, D),
-// ys/yr (N*K, 2D), all bf16. out (N, K, D) bf16.
-extern "C" int fs_gnn_layer(const bf16* x, const bf16* src, const float* mask,
+// x (N, K, D), src (N, S, D) bf16; mask (N, S) bool (one byte each).
+// Weights as split_layer_params lays them out: wq/wk/wv (h, D, 64),
+// bq/bk/bv (h*64), wm (h*64, D), bm (D), w0a/w0b (D, 2D), b0 (2D),
+// ln_scale/ln_bias (2D) f32, w1 (2D, D), b1 (D). Scratch: qs (N*K, D),
+// ks/vs (N*S, D), os/ms (N*K, D), ys/yr (N*K, 2D), all bf16. out (N, K, D)
+// bf16. Every array contiguous and 16-byte aligned.
+extern "C" int fs_gnn_layer(const bf16* x, const bf16* src, const unsigned char* mask,
                             const bf16* wq, const bf16* bq, const bf16* wk,
                             const bf16* bk, const bf16* wv, const bf16* bv,
                             const bf16* wm, const bf16* bm, const bf16* w0a,
@@ -286,25 +267,30 @@ extern "C" int fs_gnn_layer(const bf16* x, const bf16* src, const float* mask,
                             int heads, cudaStream_t stream) {
   if (N == 0 || K == 0) return 0;
   const int dh = D / heads;
-  if (dh != DH || dh * heads != D) return (int)cudaErrorInvalidValue;
+  if (S <= 0 || dh != attn_core::DH || dh * heads != D) return (int)cudaErrorInvalidValue;
   const int MK = N * K, MS = N * S;
+  const long long split = (long long)D * dh;  // head stride of wq, wk, wv
   int err;
-  if ((err = gemm(x, nullptr, wq, nullptr, D, dh, bq, nullptr, qs, MK, D, D, stream))) return err;
-  if ((err = gemm(src, nullptr, wk, nullptr, D, dh, bk, nullptr, ks, MS, D, D, stream))) return err;
-  if ((err = gemm(src, nullptr, wv, nullptr, D, dh, bv, nullptr, vs, MS, D, D, stream))) return err;
+  GemmBatch qkv{{Gemm{x, nullptr, D, wq, nullptr, split, dh, bq, nullptr, qs, MK, D, D},
+                 Gemm{src, nullptr, D, wk, nullptr, split, dh, bk, nullptr, ks, MS, D, D},
+                 Gemm{src, nullptr, D, wv, nullptr, split, dh, bv, nullptr, vs, MS, D, D}}};
+  if ((err = run_gemms(qkv, 3, stream))) return err;
 
-  const size_t smem = sizeof(float) * (size_t)(AQ * LD + 2 * AS * LD + AQ * (AS + 1) + AS);
-  cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 agrid((K + AQ - 1) / AQ, heads, N);
-  attention_kernel<<<agrid, 256, smem, stream>>>(qs, ks, vs, mask, os, K, S, D,
-                                                 1.f / sqrtf((float)dh));
+  const int smem = attn_core::smem_bytes(S);
+  if ((err = (int)attention_smem.allow((const void*)gnn_attention_kernel, smem))) return err;
+  const dim3 agrid((K + attn_core::QT - 1) / attn_core::QT, heads, N);
+  gnn_attention_kernel<<<agrid, attn_core::THREADS, smem, stream>>>(qs, ks, vs, mask, os, K, S, D,
+                                                                    1.f / sqrtf((float)dh));
   if ((err = (int)cudaGetLastError())) return err;
 
-  if ((err = gemm(os, nullptr, wm, nullptr, D, D, bm, nullptr, ms, MK, D, D, stream))) return err;
-  if ((err = gemm(x, ms, w0a, w0b, D, 2 * D, b0, nullptr, ys, MK, 2 * D, 2 * D, stream))) return err;
+  GemmBatch merge{{Gemm{os, nullptr, D, wm, nullptr, 64, D, bm, nullptr, ms, MK, D, D}}};
+  if ((err = run_gemms(merge, 1, stream))) return err;
+  GemmBatch mlp0{{Gemm{x, ms, D, w0a, w0b, 64, 2 * D, b0, nullptr, ys, MK, 2 * D, 2 * D}}};
+  if ((err = run_gemms(mlp0, 1, stream))) return err;
   const int rows_per_block = 8;
   layernorm_relu_kernel<<<(MK + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0, stream>>>(
       ys, ln_scale, ln_bias, yr, MK, 2 * D);
   if ((err = (int)cudaGetLastError())) return err;
-  return gemm(yr, nullptr, w1, nullptr, 2 * D, D, b1, x, out, MK, D, 2 * D, stream);
+  GemmBatch mlp1{{Gemm{yr, nullptr, 2 * D, w1, nullptr, 64, D, b1, x, out, MK, D, 2 * D}}};
+  return run_gemms(mlp1, 1, stream);
 }

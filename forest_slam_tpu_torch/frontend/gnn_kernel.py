@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from forest_slam_tpu_torch import _build
+from forest_slam_tpu_torch.frontend.attention_kernel import masked_attention_plain
 
-NEG = -1e9
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 
 _BF = torch.bfloat16
@@ -68,28 +68,26 @@ def _bf(x):
     return x.to(_BF)
 
 
+def project_heads(a, w, b):
+    """(N, L, D) bf16 @ per-head (h, D, dh) weights + (h, 1, dh) biases ->
+    (N, h, L, dh) bf16, rounded as Dense(bf16) rounds: bf16(bf16(a @ w) + b)."""
+    return _bf(_bf(a[:, None].float() @ w.float()).float() + b.float())
+
+
 def gnn_layer_plain(x, src, src_mask, weights: tuple, num_heads: int):
     """(N, K, D) bf16 -> (N, K, D) bf16: one GNN layer, the TPU kernel's
-    numerics (f32 logits and softmax, bf16 probabilities and messages)."""
+    numerics (f32 logits and softmax, bf16 probabilities and messages). Its
+    attention is :func:`masked_attention_plain` on the head-split
+    projections, as the kernel's is the attention kernel's core."""
     wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1 = weights
     x = _bf(x)
     src = _bf(src)
-    D = x.shape[-1]
-    dh = D // num_heads
-    scale = 1.0 / dh ** 0.5
-    m = src_mask.float()[:, None, :]  # (N, 1, S)
-    merged = torch.zeros(x.shape[:-1] + (D,), dtype=torch.float32, device=x.device)
-    for h in range(num_heads):
-        qh = _bf(_bf(_mm(x, wq[h])).float() + bq[h].float())
-        kh = _bf(_bf(_mm(src, wk[h])).float() + bk[h].float())
-        vh = _bf(_bf(_mm(src, wv[h])).float() + bv[h].float())
-        logits = _mm(qh, kh.transpose(-1, -2)) * scale
-        logits = torch.where(m > 0.5, logits, torch.full_like(logits, NEG))
-        logits = logits - logits.max(dim=-1, keepdim=True).values
-        p = torch.exp(logits)
-        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        oh = _bf(_mm(_bf(p), vh))
-        merged = merged + _mm(oh, wm[h])
+    dh = x.shape[-1] // num_heads
+    msg = masked_attention_plain(project_heads(x, wq, bq), project_heads(src, wk, bk), project_heads(src, wv, bv),
+                                 src_mask.bool(), 1.0 / dh ** 0.5)  # (N, h, K, dh)
+    merged = torch.zeros_like(x, dtype=torch.float32)
+    for h in range(num_heads):  # the merge accumulated head by head, as the TPU kernel does
+        merged = merged + _mm(msg[:, h], wm[h])
     merged = _bf(_bf(merged).float() + bm.float())
     y = _bf(_bf(_mm(x, w0a) + _mm(merged, w0b)).float() + b0.float())
     yf = y.float()
@@ -113,25 +111,23 @@ def gnn_layer(x, src, src_mask, weights: tuple, num_heads: int):
     S = src.shape[1]
     if D % num_heads or D // num_heads != 64:
         raise ValueError(f"the gnn_layer kernel takes 64-wide heads; got D={D}, heads={num_heads}")
-    if src_mask.shape != (N, S):
-        raise ValueError(f"src_mask must be (N, S); got {tuple(src_mask.shape)}")
+    if src_mask.shape != (N, S) or src_mask.dtype != torch.bool:
+        raise ValueError(f"src_mask must be (N, S) bool; got {tuple(src_mask.shape)} {src_mask.dtype}")
     dev = x.device
-    for t in (x, src, *weights):
+    mask = src_mask.contiguous()
+    for t in (x, src, mask, *weights):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("gnn_layer inputs and weights must be contiguous on one device")
+        if t is not mask and t.data_ptr() % 16:
+            raise ValueError("gnn_layer inputs and weights must be 16-byte aligned")
     if x.dtype != _BF or src.dtype != _BF:
         raise ValueError(f"gnn_layer takes bf16 activations; got {x.dtype}, {src.dtype}")
     wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1 = weights
-    mask = src_mask.float().contiguous()
-    bf = dict(dtype=_BF, device=dev)
-    qs = torch.empty((N * K, D), **bf)
-    ks = torch.empty((N * S, D), **bf)
-    vs = torch.empty((N * S, D), **bf)
-    os_ = torch.empty((N * K, D), **bf)
-    ms = torch.empty((N * K, D), **bf)
-    ys = torch.empty((N * K, 2 * D), **bf)
-    yr = torch.empty((N * K, 2 * D), **bf)
-    out = torch.empty((N, K, D), **bf)
+    # the kernel's intermediates in one allocation (each piece a multiple of
+    # 64 bf16 rows wide, so every piece stays 16-byte aligned)
+    rows = (N * K, N * S, N * S, N * K, N * K, 2 * N * K, 2 * N * K)
+    qs, ks, vs, os_, ms, ys, yr = torch.empty((sum(rows), D), dtype=_BF, device=dev).split(rows)
+    out = torch.empty((N, K, D), dtype=_BF, device=dev)
     ptrs = [t.data_ptr() for t in (x, src, mask, wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0,
                                    lns, lnb, w1, b1, qs, ks, vs, os_, ms, ys, yr, out)]
     fn = _build.function("fs_gnn_layer", *[_build.P] * 26, *[_build.I] * 5, _build.P)

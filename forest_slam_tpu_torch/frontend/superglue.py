@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from forest_slam_tpu_torch.frontend.attention_kernel import masked_attention, masked_attention_plain
-from forest_slam_tpu_torch.frontend.gnn_kernel import LN_EPS, _bf, gnn_layer, gnn_layer_plain
+from forest_slam_tpu_torch.frontend.gnn_kernel import LN_EPS, _bf, gnn_layer, gnn_layer_plain, project_heads
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import (
     sinkhorn_decode,
     sinkhorn_decode_plain,
@@ -116,12 +116,8 @@ def gnn_layer_unfused(x, src, src_mask, weights: tuple, num_heads: int, attentio
     wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1 = weights
     x = _bf(x)
     src = _bf(src)
-
-    def heads(a, w, b):  # (N, L, D) @ (h, D, dh) -> (N, h, L, dh), Dense(bf16)
-        return _bf(_bf(a[:, None].float() @ w.float()).float() + b.float())
-
-    msg = attention(heads(x, wq, bq), heads(src, wk, bk), heads(src, wv, bv), src_mask, attention_impl,
-                    softmax_dtype)
+    msg = attention(project_heads(x, wq, bq), project_heads(src, wk, bk), project_heads(src, wv, bv), src_mask,
+                    attention_impl, softmax_dtype)
     merged = _bf(_bf(torch.einsum("nhkd,hde->nke", msg.float(), wm.float())).float() + bm.float())
     y = _bf(_bf(x.float() @ w0a.float() + merged.float() @ w0b.float()).float() + b0.float())
     # flax.linen.LayerNorm(dtype=bf16): float32 statistics with the fast

@@ -72,7 +72,10 @@ def test_sinkhorn_kernel(cuda):
     torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-4)
 
 
-def test_gnn_layer_kernel(cuda):
+@pytest.mark.parametrize("N, K, S, all_masked", [(4, 150, 130, False), (4, 150, 130, True), (48, 512, 512, False)])
+def test_gnn_layer_kernel(cuda, N, K, S, all_masked):
+    """Ragged K != S, a sequence whose sources are all masked, and the lowres
+    gate's shape (48 sequences of 512 x 256)."""
     import numpy as np
 
     dev, g = cuda
@@ -86,11 +89,16 @@ def test_gnn_layer_kernel(cuda):
         "mlp1": {"kernel": rng.normal(size=(2 * D, D)) * 0.04, "bias": rng.normal(size=D) * 0.1},
     }
     ws = split_layer_params(lp, 4, device=dev)
-    x = torch.randn((4, 150, D), generator=g, device=dev).to(torch.bfloat16)
-    src = torch.randn((4, 130, D), generator=g, device=dev).to(torch.bfloat16)
-    mask = torch.rand((4, 130), generator=g, device=dev) < 0.7
+    x = torch.randn((N, K, D), generator=g, device=dev).to(torch.bfloat16)
+    src = torch.randn((N, S, D), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.rand((N, S), generator=g, device=dev) < 0.7
+    if all_masked:
+        mask[-1] = False
+    n = gnn_layer.launches
     got = gnn_layer(x, src, mask, ws, 4).float()
+    assert gnn_layer.launches == n + 1
     ref = gnn_layer_plain(x, src, mask, ws, 4).float()
+    assert torch.isfinite(got).all()
     scale = max(1.0, ref.abs().max().item())
     assert (got - ref).abs().max().item() <= 0.05 * scale
     assert (got - ref).abs().mean().item() <= 2e-3 * scale
@@ -177,10 +185,14 @@ def test_select_kernel_negative_heat_and_radius(cuda):
         nms_block_max(heat[:, :46].contiguous())
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 128, 128, 128), (3, 4, 100, 77, 77), (16, 4, 1024, 1024, 1024)])
+# (B, h, K, S): S below 16, one query, S not a multiple of the kernel's
+# 64-source tile, K != S both ways, and the unfused path's shape
+@pytest.mark.parametrize("shape", [(2, 4, 128, 128), (3, 4, 100, 77), (16, 4, 1024, 1024), (2, 4, 70, 9),
+                                   (3, 2, 1, 77), (2, 4, 200, 200), (3, 4, 150, 130), (2, 4, 40, 330)])
 def test_attention_kernel(cuda, shape):
     dev, g = cuda
-    B, h, K, S, dh = shape[0], shape[1], shape[2], shape[3], 64
+    B, h, K, S = shape
+    dh = 64
     q = (torch.randn((B, h, K, dh), generator=g, device=dev) * 2).to(torch.bfloat16)
     k = (torch.randn((B, h, S, dh), generator=g, device=dev) * 2).to(torch.bfloat16)
     v = torch.randn((B, h, S, dh), generator=g, device=dev).to(torch.bfloat16)

@@ -84,11 +84,19 @@ def test_build_failure_reports_nvcc_output(tmp_path, monkeypatch):
     assert os.listdir(tmp_path / "build") == []
 
 
-def test_library_name_follows_sources_and_flags(monkeypatch):
+def test_library_name_follows_sources_and_flags(monkeypatch, tmp_path):
     from forest_slam_tpu_torch import _build
 
     a = _build.library_path()
     assert a == _build.library_path()
     assert len(_build.sources()) == 7
+    assert [os.path.basename(p) for p in _build.headers()] == ["attention_core.cuh"]
+    # an edit to a shared header names a new library
+    header = tmp_path / "attention_core.cuh"
+    header.write_bytes(open(_build.headers()[0], "rb").read() + b"// edited\n")
+    with monkeypatch.context() as m:
+        m.setattr(_build, "headers", lambda: [str(header)])
+        assert _build.library_path() != a
+    assert _build.library_path() == a
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DEXTRA",))
     assert _build.library_path() != a

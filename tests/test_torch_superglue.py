@@ -1,9 +1,11 @@
 """SuperGlue pieces of the port against the JAX package.
 
 - GNN layer: the plain version against ``fused_gnn_layer(interpret=True)``
-  at K=128 with the flagship's weights. Both cast to bf16 at the same
-  points; sums differ in order, so a bf16 output may differ by a rounding:
-  max error within 2% of the output range, mean within 1e-3.
+  at K=S=128, at a ragged K=40, S=56 and with a fully masked sequence, with
+  the flagship's weights. Both cast to bf16 at the same points; sums differ
+  in order, so a bf16 output may differ by a rounding: max error within 2%
+  of the output range, mean within 1e-3. Its attention equals
+  ``masked_attention_plain`` on the head-split projections bit for bit.
 - Sinkhorn: the plain exp-domain decode against
   ``sinkhorn_decode(interpret=True)``: indices equal, scores within 1e-5
   (float32 sums in another order); the port's log-domain pair against the
@@ -27,7 +29,8 @@ from forest_slam_tpu.frontend.pallas_sinkhorn import sinkhorn_decode as jsinkhor
 from forest_slam_tpu.frontend.superglue import SuperGlueConfig as JSGConfig
 from forest_slam_tpu.frontend.superglue import log_sinkhorn as jlog_sinkhorn
 from forest_slam_tpu.frontend.superglue import match_from_couplings as jmatch_from_couplings
-from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain, split_layer_params
+from forest_slam_tpu_torch.frontend.attention_kernel import masked_attention_plain
+from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain, project_heads, split_layer_params
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
 from forest_slam_tpu_torch.frontend.superglue import SuperGlueConfig, log_sinkhorn, match_decode, match_from_couplings
 from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, read_checkpoint, superglue_from_jax
@@ -40,11 +43,16 @@ def sg_params():
     return serialization.msgpack_restore(open(FLAGSHIP_PATH, "rb").read())["params"]["superglue"]["params"]
 
 
-def test_gnn_layer_plain_matches_pallas_interpret(sg_params, rng):
+# (K, S, all_masked): the matcher's K = S, a ragged K != S, and a sequence
+# whose sources are all masked (its queries average v)
+@pytest.mark.parametrize("k, s, all_masked", [(K, K, False), (40, 56, False), (K, K, True)])
+def test_gnn_layer_plain_matches_pallas_interpret(sg_params, rng, k, s, all_masked):
     B, D = 2, 256
-    x = rng.normal(size=(B, K, D)).astype(np.float32)
-    src = rng.normal(size=(B, K, D)).astype(np.float32)
-    mask = rng.random((B, K)) > 0.3
+    x = rng.normal(size=(B, k, D)).astype(np.float32)
+    src = rng.normal(size=(B, s, D)).astype(np.float32)
+    mask = rng.random((B, s)) > 0.3
+    if all_masked:
+        mask[-1] = False
     lp = sg_params["cross_3"]
     ref = np.asarray(fused_gnn_layer(jnp.asarray(x, jnp.bfloat16), jnp.asarray(src, jnp.bfloat16),
                                      jnp.asarray(mask), jsplit(lp, 4), 4, interpret=True), np.float32)
@@ -57,6 +65,35 @@ def test_gnn_layer_plain_matches_pallas_interpret(sg_params, rng):
     assert np.abs(got - ref).mean() < 1e-3
     wrapped = gnn_layer(tx, ts, torch.as_tensor(mask), ws, 4).float().numpy()
     np.testing.assert_array_equal(wrapped, got)
+
+
+def test_gnn_layer_attention_is_masked_attention_plain(sg_params, rng):
+    """The layer's attention, head by head as pallas_gnn.py:114-125 writes it
+    (a float 0/1 mask tested > 0.5, one (N, K, S) logits block per head),
+    equals masked_attention_plain on the head-split q, k, v bit for bit: the
+    claim that lets one attention core serve both CUDA kernels. The ragged
+    K != S and a fully masked sequence are in it."""
+    N, k, s, D, heads = 2, 40, 56, 256, 4
+    ws = split_layer_params(sg_params["self_1"], heads)
+    wq, bq, wk, bk, wv, bv = ws[:6]
+    x = torch.as_tensor(rng.normal(size=(N, k, D)).astype(np.float32)).to(torch.bfloat16)
+    src = torch.as_tensor(rng.normal(size=(N, s, D)).astype(np.float32)).to(torch.bfloat16)
+    mask = torch.as_tensor(rng.random((N, s)) > 0.3)
+    mask[-1] = False
+    q, kk, v = project_heads(x, wq, bq), project_heads(src, wk, bk), project_heads(src, wv, bv)
+    scale = 1.0 / (D // heads) ** 0.5
+    got = masked_attention_plain(q, kk, v, mask, scale)
+    m = mask.float()[:, None, :]
+    for h in range(heads):
+        logits = (q[:, h].float() @ kk[:, h].float().transpose(-1, -2)) * scale
+        logits = torch.where(m > 0.5, logits, torch.full_like(logits, -1e9))
+        p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        ref = (p.to(torch.bfloat16).float() @ v[:, h].float()).to(torch.bfloat16)
+        assert torch.equal(got[:, h], ref), h
+    # the fully masked sequence averages v
+    torch.testing.assert_close(got[-1].float(), v[-1].float().mean(dim=1, keepdim=True).expand(-1, k, -1),
+                               rtol=0, atol=2.0 ** -8)
 
 
 def _scores(rng, B=2, K0=K, K1=K):
