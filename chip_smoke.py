@@ -15,6 +15,9 @@ Phases, each printing one line with its elapsed seconds:
    time and its bound (the detection kernel at all eight pyramid levels of a
    960x600 frame, a batch of 8 frames each; the select kernel at a batch of
    8 960x600 heat maps and at the lowres gate's three octaves of 24 frames;
+   the Sinkhorn kernel at the learned paths' (8, 1024, 1024), the lowres
+   gate's (23, 512, 512) and a ragged (3, 200, 170) with a pair whose
+   keypoints are all invalid, with the launch configuration it chose;
    the attention kernel at 16 sequences of 4 heads, K=S=1024, beside
    ``scaled_dot_product_attention`` as a yardstick, and at a ragged K=150,
    S=130; the GNN layer kernel at 16 sequences of 1024 x 256, at the lowres
@@ -202,15 +205,24 @@ def check_gnn(dev, gen, fe):
     )
 
 
-def check_sinkhorn(dev, gen, fe):
+# the Sinkhorn kernel's shapes (B, K0, K1, one pair all invalid): the
+# learned paths' pair batch, the lowres gate's 23 pairs of K = 512, and a
+# ragged K0 != K1, not a multiple of 4, with a pair whose valid0 is all False
+SINKHORN_SHAPES = ((PAIR_BATCH, K, K, False), (LOWRES_FRAMES - 1, LOWRES_K, LOWRES_K, False), (3, 200, 170, True))
+
+
+def sinkhorn_case(dev, gen, shape, alpha, iters):
+    """The Sinkhorn kernel against its plain version at (B, K0, K1,
+    dead_pair): (max score error, argmax agreement, ok, inputs)."""
     from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
 
-    B, iters = PAIR_BATCH, fe.cfg.superglue.sinkhorn_iterations
-    scores = torch.randn((B, K, K), generator=gen, device=dev) * 1.5
-    scores = (scores + 6.0 * torch.eye(K, device=dev)).contiguous()
-    valid0 = torch.rand((B, K), generator=gen, device=dev) < 0.8
-    valid1 = torch.rand((B, K), generator=gen, device=dev) < 0.8
-    alpha = fe.superglue.bin_score
+    B, K0, K1, dead_pair = shape
+    scores = torch.randn((B, K0, K1), generator=gen, device=dev) * 1.5
+    scores = (scores + 6.0 * torch.eye(K0, K1, device=dev)).contiguous()
+    valid0 = torch.rand((B, K0), generator=gen, device=dev) < 0.8
+    valid1 = torch.rand((B, K1), generator=gen, device=dev) < 0.8
+    if dead_pair:
+        valid0[min(1, B - 1)] = False
     got = sinkhorn_decode(scores, valid0, valid1, alpha, iters)
     ref = sinkhorn_decode_plain(scores, valid0, valid1, alpha, iters)
     err = max((got[1] - ref[1]).abs().max().item(), (got[3] - ref[3]).abs().max().item())
@@ -218,17 +230,41 @@ def check_sinkhorn(dev, gen, fe):
     # coupling probabilities from sums in another order: float32 rounding;
     # argmax indices may differ only on near-ties
     ok = err <= 1e-4 and agree >= 0.999
-    ops = B * K * K * (2 * iters + 3) * 3
-    nbytes = B * (K * K * 4 + 2 * K * 4 + 4 * K * 4)
-    b_ms, b_by = bound(nbytes, ops, F32_OPS)
+    return err, agree, ok, (scores, valid0, valid1, alpha, iters)
+
+
+def sinkhorn_bound(B, K0, K1, iters):
+    # per table entry: the row max's compare, s - r and its exp, two
+    # multiply-adds an iteration (row and column sums), and a multiply and a
+    # compare for each decode; a multiply-add counts as 2
+    ops = B * K0 * K1 * (4 * iters + 7)
+    nbytes = B * (K0 * K1 * 4 + (K0 + K1) * 4 + 2 * (K0 + K1) * 4)
+    return bound(nbytes, ops, F32_OPS)
+
+
+def check_sinkhorn(dev, gen, fe):
+    from forest_slam_tpu_torch.frontend.sinkhorn_kernel import launch_plan, sinkhorn_decode, sinkhorn_decode_plain
+
+    iters = fe.cfg.superglue.sinkhorn_iterations
+    per_shape, ok = [], True
+    for shape in SINKHORN_SHAPES:
+        err, agree, o, args = sinkhorn_case(dev, gen, shape, fe.superglue.bin_score, iters)
+        ok &= o
+        B, K0, K1, dead = shape
+        b_ms, b_by = sinkhorn_bound(B, K0, K1, iters)
+        per_shape.append(dict(shape=[B, K0, K1], dead_pair=dead, max_abs_err=err, argmax_agreement=agree, ok=o,
+                              ms=time_ms(lambda: sinkhorn_decode(*args)),
+                              plain_ms=time_ms(lambda: sinkhorn_decode_plain(*args)),
+                              bound_ms=b_ms, bound_by=b_by, plan=launch_plan(B, K0, K1, dev)))
+    main = per_shape[0]  # the 960x600 learned paths' shape
     return dict(
         name="sinkhorn_decode", source="forest_slam_tpu_torch/csrc/sinkhorn.cu",
         replaces="forest_slam_tpu/frontend/pallas_sinkhorn.py:143",
         tolerance="scores <= 1e-4 abs, argmax agreement >= 0.999",
-        max_abs_err=err, argmax_agreement=agree, ok=ok,
-        ms=time_ms(lambda: sinkhorn_decode(scores, valid0, valid1, alpha, iters)),
-        plain_ms=time_ms(lambda: sinkhorn_decode_plain(scores, valid0, valid1, alpha, iters)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_abs_err=max(p["max_abs_err"] for p in per_shape),
+        argmax_agreement=min(p["argmax_agreement"] for p in per_shape), ok=ok,
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, per_shape=per_shape,
     )
 
 
@@ -554,6 +590,16 @@ def main() -> int:
     log(f"  attention at (B, h, K, S) = {tuple(rag['shape'])}: max error {rag['max_abs_err']:.6g} of "
         f"{rag['max_abs_ref']:.4g}, mean {rag['mean_abs_err']:.3g}, fully masked sequence to "
         f"{rag['masked_row_err']:.3g}: {'PASS' if rag['ok'] else 'FAIL'}")
+    skh = by_name["sinkhorn_decode"]
+    for p in skh["per_shape"]:
+        pl = p["plan"]
+        log(f"  sinkhorn_decode at (B, K0, K1) = {tuple(p['shape'])}{', one pair all invalid' if p['dead_pair'] else ''}: "
+            f"max error {p['max_abs_err']:.3g}, argmax agreement {p['argmax_agreement']:.4f}, "
+            f"{'PASS' if p['ok'] else 'FAIL'}; {p['ms']:.4f} ms vs plain {p['plain_ms']:.4f} ms, bound "
+            f"{p['bound_ms']:.4f} ms by {p['bound_by']}; launch: cluster of {pl['cluster']} CTAs per pair, "
+            f"{pl['rows_per_cta']} rows per CTA ({pl['smem_rows']} in shared memory, {pl['l2_rows']} in L2), "
+            f"{pl['smem_bytes']} bytes of shared memory per CTA, {pl['threads']} threads, "
+            f"{pl['active_clusters']} clusters active at once, {pl['waves']} wave(s)")
     gnn = by_name["gnn_layer"]
     for o in gnn["other_shapes"]:
         log(f"  gnn_layer at (N, K, S, D) = {tuple(o['shape'])}{', one sequence fully masked' if o['all_masked_sequence'] else ''}: "

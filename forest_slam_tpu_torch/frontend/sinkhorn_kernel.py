@@ -6,10 +6,13 @@ Counterpart of frontend/pallas_sinkhorn.py (``sinkhorn_decode`` /
 (iteration for iteration the TPU kernel's, and equivalent to
 superglue.log_sinkhorn + match_from_couplings). :func:`sinkhorn_decode`
 launches the kernel for CUDA tensors and takes the plain version only for
-CPU tensors.
+CPU tensors; :func:`launch_plan` says how the kernel lays a shape out
+(cluster size, rows per CTA, shared memory).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -62,36 +65,75 @@ def sinkhorn_decode(scores, valid0, valid1, alpha, iters: int):
     CUDA tensors, the plain version for CPU tensors."""
     if scores.device.type == "cpu":
         return sinkhorn_decode_plain(scores, valid0, valid1, alpha, iters)
+    return _launch(scores, valid0, valid1, alpha, iters, cluster=0)
+
+
+_PLAN_KEYS = ("cluster", "rows_per_cta", "smem_rows", "l2_rows", "smem_bytes", "active_clusters", "waves",
+              "threads")
+_plans: dict = {}
+
+
+def launch_plan(B: int, K0: int, K1: int, device, cluster: int = 0) -> dict:
+    """How the kernel runs (B, K0, K1) on ``device``: cluster size (CTAs per
+    pair), rows per CTA and how many of them sit in shared memory and in the
+    L2 scratch, shared memory bytes per CTA, clusters active at once, waves
+    and threads per CTA. ``cluster`` 0 lets the launcher choose; 1..16 asks
+    for that size. Cached per device and shape."""
+    device = torch.device(device)
+    key = (device.index, B, K0, K1, cluster)
+    if key not in _plans:
+        out = (ctypes.c_int * len(_PLAN_KEYS))()
+        fn = _build.function("fs_sinkhorn_plan", *[_build.I] * 4, _build.P)
+        with torch.cuda.device(device):
+            rc = fn(B, K0, K1, cluster, ctypes.addressof(out))
+        if rc == -1:
+            raise ValueError(f"sinkhorn_decode: K1={K1} is too wide for V and the column partials to fit in "
+                             "shared memory")
+        if rc == -2:
+            raise RuntimeError(f"sinkhorn_decode: no cluster size can run (B, K0, K1) = {(B, K0, K1)} "
+                               f"(asked for {cluster or 'any'})")
+        _build.check("fs_sinkhorn_plan", rc)
+        _plans[key] = dict(zip(_PLAN_KEYS, out))
+    return _plans[key]
+
+
+def _launch(scores, valid0, valid1, alpha, iters: int, cluster: int):
+    """One launch of the kernel, with the cluster size ``cluster`` (0: the
+    launcher's choice)."""
     if scores.dtype != torch.float32 or scores.dim() != 3 or not scores.is_contiguous():
         raise ValueError(f"sinkhorn_decode needs contiguous (B, K0, K1) float32; got {scores.dtype} {tuple(scores.shape)}")
     B, K0, K1 = scores.shape
     if valid0.shape != (B, K0) or valid1.shape != (B, K1):
         raise ValueError(f"valid masks must be (B, K0), (B, K1); got {tuple(valid0.shape)}, {tuple(valid1.shape)}")
+    if K0 < 1 or K1 < 1:
+        raise ValueError(f"sinkhorn_decode needs K0, K1 >= 1; got {(K0, K1)}")
+    if iters < 0:
+        raise ValueError(f"sinkhorn_decode needs iters >= 0; got {iters}")
     dev = scores.device
     for t in (valid0, valid1):
         if t.device != dev:
             raise ValueError("sinkhorn_decode inputs must share one device")
-    v0 = valid0.float().contiguous()
-    v1 = valid1.float().contiguous()
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=dev).reshape(1).contiguous()
-    n0 = v0.sum(dim=1).contiguous()
-    n1 = v1.sum(dim=1).contiguous()
+    i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    r = torch.empty((B, K0), **f32)
-    binc = torch.empty((B, K0), **f32)
-    A = torch.empty((B, K0), **f32)
-    Abin = torch.empty((B,), **f32)
-    V = torch.ones((B, K1), **f32)
-    Vbin = torch.ones((B,), **f32)
-    best1 = torch.empty((B, K0), dtype=torch.int32, device=dev)
-    sc0 = torch.empty((B, K0), **f32)
-    best0 = torch.empty((B, K1), dtype=torch.int32, device=dev)
-    sc1 = torch.empty((B, K1), **f32)
-    fn = _build.function("fs_sinkhorn_decode", *[_build.P] * 16, *[_build.I] * 4, _build.P)
-    rc = fn(scores.data_ptr(), v0.data_ptr(), v1.data_ptr(), a.data_ptr(), n0.data_ptr(),
-            n1.data_ptr(), r.data_ptr(), binc.data_ptr(), A.data_ptr(), Abin.data_ptr(),
-            V.data_ptr(), Vbin.data_ptr(), best1.data_ptr(), sc0.data_ptr(), best0.data_ptr(),
-            sc1.data_ptr(), B, K0, K1, iters, _build.stream_ptr(dev))
+    if B == 0:
+        return (torch.empty((0, K0), **i32), torch.empty((0, K0), **f32), torch.empty((0, K1), **i32),
+                torch.empty((0, K1), **f32))
+    plan = launch_plan(B, K0, K1, dev, cluster)
+    v0 = valid0.to(torch.bool).contiguous().view(torch.uint8)
+    v1 = valid1.to(torch.bool).contiguous().view(torch.uint8)
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=dev).reshape(1).contiguous()
+    # the four outputs in one allocation; the khat rows that do not fit in
+    # shared memory in an L2-resident scratch
+    out = torch.empty((2 * B * (K0 + K1),), **f32)
+    sc0, sc1, best1, best0 = torch.split(out, (B * K0, B * K1, B * K0, B * K1))
+    best1, best0 = best1.view(torch.int32).view(B, K0), best0.view(torch.int32).view(B, K1)
+    sc0, sc1 = sc0.view(B, K0), sc1.view(B, K1)
+    n_spill = B * plan["cluster"] * plan["l2_rows"] * ((K1 + 3) // 4 * 4)
+    spill = torch.empty((n_spill,), **f32) if n_spill else None
+    fn = _build.function("fs_sinkhorn_decode", *[_build.P] * 9, *[_build.I] * 5, _build.P)
+    rc = fn(scores.data_ptr(), v0.data_ptr(), v1.data_ptr(), a.data_ptr(), spill.data_ptr() if n_spill else None,
+            best1.data_ptr(), sc0.data_ptr(), best0.data_ptr(), sc1.data_ptr(), B, K0, K1, iters, plan["cluster"],
+            _build.stream_ptr(dev))
     _build.check("fs_sinkhorn_decode", rc)
     sinkhorn_decode.launches += 1
     return best1, sc0, best0, sc1

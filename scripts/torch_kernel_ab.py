@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the attention and fused GNN-layer kernels of one checkout on one GPU.
+"""Time the attention, fused GNN-layer and Sinkhorn kernels of one checkout on one GPU.
 
-    python3 scripts/torch_kernel_ab.py [--root DIR]
+    python3 scripts/torch_kernel_ab.py [--root DIR] [--sinkhorn-clusters 8,12,16]
 
 imports ``forest_slam_tpu_torch`` from ``DIR`` (default: this repository),
 builds its kernels, and times ``attention_forward`` at (16, 4, 1024, 64)
-beside ``scaled_dot_product_attention``, and ``gnn_layer`` (the flagship
+beside ``scaled_dot_product_attention``, ``gnn_layer`` (the flagship
 checkpoint's first cross layer) at 16 sequences of 1024 x 256 and at the
-lowres gate's 48 of 512 x 256. The inputs and the check against the plain
-versions are ``chip_smoke.py``'s (``attention_case``, ``gnn_case``), loaded
-from this repository whatever ``DIR`` is, so both checkouts get the same
-inputs and the same tolerances. Each time is the median of 7 CUDA-event
+lowres gate's 48 of 512 x 256, and ``sinkhorn_decode`` (20 iterations, the
+flagship's dustbin score) at (8, 1024, 1024) and at the lowres gate's (23,
+512, 512). The inputs and the check against the plain versions are
+``chip_smoke.py``'s (``attention_case``, ``gnn_case``, ``sinkhorn_case``),
+loaded from this repository whatever ``DIR`` is, so both checkouts get the
+same inputs and the same tolerances. ``--sinkhorn-clusters`` also times the
+Sinkhorn kernel with each of the given cluster sizes forced, at both shapes
+(checkouts whose wrapper has ``_launch(..., cluster)``). Each time is the median of 7 CUDA-event
 timings of 20 launches each, after a warm-up, so it leaves out the gaps
 between launches that ``chip_smoke.py``'s one launch per event pair holds.
 The last line of its output is one JSON object with the times, whether each
@@ -48,7 +52,10 @@ def load_chip_smoke():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO)
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--sinkhorn-clusters", default="", help="comma-separated cluster sizes to force")
+    opts = ap.parse_args()
+    root = os.path.abspath(opts.root)
+    clusters = [int(c) for c in opts.sinkhorn_clusters.split(",") if c]
     sys.path.insert(0, root)
 
     import torch
@@ -61,6 +68,7 @@ def main() -> int:
     from forest_slam_tpu_torch import _build
     from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward
     from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer
+    from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode
     from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
 
     if not _build.__file__.startswith(root):
@@ -92,10 +100,27 @@ def main() -> int:
             *_, ok, (x, src, m) = smoke.gnn_case(dev, gen, ws, heads, N, L, L, False)
             out[f"{name}_ok"] = ok
             out[f"{name}_ms"] = timed(lambda: gnn_layer(x, src, m, ws, heads))
-    ok = out["attention_ok"] and out["gnn_layer_ok"] and out["gnn_layer_lowres_ok"]
+        iters = fe.cfg.superglue.sinkhorn_iterations
+        for name, shape in (("sinkhorn", smoke.SINKHORN_SHAPES[0]), ("sinkhorn_lowres", smoke.SINKHORN_SHAPES[1])):
+            *_, ok, args = smoke.sinkhorn_case(dev, gen, shape, fe.superglue.bin_score, iters)
+            out[f"{name}_ok"] = ok
+            out[f"{name}_ms"] = timed(lambda: sinkhorn_decode(*args))
+            if clusters:
+                from forest_slam_tpu_torch.frontend.sinkhorn_kernel import _launch, launch_plan
+
+                out[f"{name}_by_cluster"] = {
+                    c: dict(launch_plan(*shape[:3], dev, c), ms=timed(lambda: _launch(*args, cluster=c)))
+                    for c in clusters}
+    ok = all(v for k, v in out.items() if k.endswith("_ok"))
     print(f"{out['label']}: attention {out['attention_ms']:.4f} ms (sdpa {out['sdpa_ms']:.4f} ms), gnn_layer "
-          f"{out['gnn_layer_ms']:.4f} ms, lowres {out['gnn_layer_lowres_ms']:.4f} ms on {out['device']}; within "
+          f"{out['gnn_layer_ms']:.4f} ms, lowres {out['gnn_layer_lowres_ms']:.4f} ms, sinkhorn_decode "
+          f"{out['sinkhorn_ms']:.4f} ms, lowres {out['sinkhorn_lowres_ms']:.4f} ms on {out['device']}; within "
           f"tolerance: {ok}", flush=True)
+    for name in ("sinkhorn", "sinkhorn_lowres"):
+        for c, r in out.get(f"{name}_by_cluster", {}).items():
+            print(f"  {name} with clusters of {c}: {r['ms']:.4f} ms ({r['rows_per_cta']} rows per CTA, "
+                  f"{r['smem_rows']} in shared memory, {r['l2_rows']} in L2, {r['active_clusters']} clusters "
+                  f"active, {r['waves']} wave(s))", flush=True)
     print(json.dumps(out), flush=True)
     return 0 if ok else 1
 

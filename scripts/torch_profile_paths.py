@@ -11,8 +11,9 @@ the lowres gate on 24 corridor frames at 224x160, three times each after a
 warm-up run: once plain for the wall time, once with every phase
 synchronised and timed on the host clock (per-frame features and depth,
 per-pair matching and PnP, chaining), and, after both paths have run so,
-once under ``torch.profiler`` (device time by kernel name, and the device's
-busy and idle share of the run's wall time).
+once under ``torch.profiler`` (device time by kernel name: the top 15 and
+the Sinkhorn kernel wherever it ranks; and the device's busy and idle
+share of the run's wall time).
 It prints a line per finding and, as its last line, one JSON object with
 the numbers; it fails without a CUDA card.
 """
@@ -64,9 +65,14 @@ def timed_phases(run):
     return dict(spent), wall
 
 
+# kernels whose device time each path reports whatever their rank
+WATCHED = ("sinkhorn",)
+
+
 def profiled(run, top: int = 15):
     """Device kernels of one run under torch.profiler: (busy seconds as the
-    union of kernel intervals, wall seconds, [(name, seconds, count)])."""
+    union of kernel intervals, wall seconds, [(name, seconds, count)] of the
+    top kernels and of those whose name holds a WATCHED word)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -89,7 +95,8 @@ def profiled(run, top: int = 15):
         elif f > end:
             busy += f - end
             end = f
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    ranked = ranked[:top] + [kv for kv in ranked[top:] if any(w in kv[0] for w in WATCHED)]
     return busy / 1e6, wall, [(n, t, counts[n]) for n, t in ranked]
 
 

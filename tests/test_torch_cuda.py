@@ -4,7 +4,8 @@ Marked ``cuda``: each test decides in the ``cuda`` fixture whether a card is
 present and skips with a reason where there is none (the CPU run). On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
 chip_smoke.py: integer-valued images make the SAD kernels exact; the GNN
-layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4; the
+layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4 and
+argmax agreement 0.999 (at iters 0, 1 and 20 and every cluster size); the
 detection kernel keeps the same finite mask, values to rtol 1e-5 and equal
 indices (it sums Harris in the plain version's order, so it is exact); the
 select kernel only compares, so it is bit-exact; the attention kernel's bf16
@@ -21,7 +22,7 @@ from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
 from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
 from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
 from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
-from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
+from forest_slam_tpu_torch.frontend.sinkhorn_kernel import _launch, launch_plan, sinkhorn_decode, sinkhorn_decode_plain
 from forest_slam_tpu_torch.stereo.sparse import prefilter
 from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
 
@@ -60,16 +61,64 @@ def test_refine_cost_kernel(cuda):
     torch.testing.assert_close(refine_cost_volume(*args), refine_cost_volume_plain(*args), rtol=0, atol=0)
 
 
-def test_sinkhorn_kernel(cuda):
-    dev, g = cuda
-    s = (torch.randn((3, 200, 170), generator=g, device=dev) * 1.5).contiguous()
-    v0 = torch.rand((3, 200), generator=g, device=dev) < 0.8
-    v1 = torch.rand((3, 170), generator=g, device=dev) < 0.8
-    got = sinkhorn_decode(s, v0, v1, torch.tensor(1.3, device=dev), 20)
-    ref = sinkhorn_decode_plain(s, v0, v1, torch.tensor(1.3, device=dev), 20)
-    assert (got[0] == ref[0]).float().mean() > 0.99 and (got[2] == ref[2]).float().mean() > 0.99
+def _sinkhorn_inputs(g, dev, B, K0, K1, dead_pair, eye=6.0):
+    s = (torch.randn((B, K0, K1), generator=g, device=dev) * 1.5 + eye * torch.eye(K0, K1, device=dev)).contiguous()
+    v0 = torch.rand((B, K0), generator=g, device=dev) < 0.8
+    v1 = torch.rand((B, K1), generator=g, device=dev) < 0.8
+    if dead_pair:
+        v0[1] = False  # a pair whose keypoints on one side are all invalid
+    return s, v0, v1, torch.tensor(1.3, device=dev)
+
+
+def _check_sinkhorn(got, ref):
+    assert all(torch.isfinite(t.float()).all() for t in got)
+    assert (got[0] == ref[0]).float().mean() >= 0.999 and (got[2] == ref[2]).float().mean() >= 0.999
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-4)
     torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-4)
+
+
+# (B, K0, K1, dead_pair[, eye]): ragged K0 != K1 not a multiple of 4 with a
+# pair whose valid0 is all False, one row, the lowres gate's and the learned
+# paths' shapes, all with a matching diagonal raised by 6; and flat random
+# scores (eye 0), whose near-ties put the argmax agreement to the test;
+# iters 0 decodes from A = V = 1
+@pytest.mark.parametrize("iters", [0, 1, 20])
+@pytest.mark.parametrize("shape", [(3, 200, 170, True), (2, 1, 37, False), (23, 512, 512, False),
+                                   (8, 1024, 1024, False), (3, 200, 170, False, 0.0)])
+def test_sinkhorn_kernel(cuda, shape, iters):
+    dev, g = cuda
+    s, v0, v1, alpha = _sinkhorn_inputs(g, dev, *shape)
+    n = sinkhorn_decode.launches
+    got = sinkhorn_decode(s, v0, v1, alpha, iters)
+    assert sinkhorn_decode.launches == n + 1
+    _check_sinkhorn(got, sinkhorn_decode_plain(s, v0, v1, alpha, iters))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8, 16])
+def test_sinkhorn_kernel_cluster_sizes(cuda, cluster):
+    """Every cluster size gives the same answer: the exchange through
+    distributed shared memory at 2..16 CTAs a pair, rows that lie in the L2
+    scratch (one CTA a pair holds 1024 rows of 4 KB only in part) and rows
+    wider than 1024 (a row sweep, then a column sweep)."""
+    dev, g = cuda
+    for shape in ((3, 200, 170, True), (2, 1024, 1024, False), (2, 96, 1300, False)):
+        s, v0, v1, alpha = _sinkhorn_inputs(g, dev, *shape)
+        plan = launch_plan(*shape[:3], dev, cluster)
+        assert plan["cluster"] == cluster and plan["rows_per_cta"] == -(-shape[1] // cluster)
+        _check_sinkhorn(_launch(s, v0, v1, alpha, 20, cluster), sinkhorn_decode_plain(s, v0, v1, alpha, 20))
+    assert launch_plan(2, 1024, 1024, dev, 1)["l2_rows"] > 0
+
+
+def test_sinkhorn_kernel_rejects_what_it_does_not_take(cuda):
+    dev, _ = cuda
+    s = torch.zeros((1, 4, 60000), device=dev)
+    v0, v1 = torch.ones((1, 4), dtype=torch.bool, device=dev), torch.ones((1, 60000), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="too wide"):
+        sinkhorn_decode(s, v0, v1, 1.0, 20)
+    with pytest.raises(ValueError, match="iters"):
+        sinkhorn_decode(s[:, :, :8].contiguous(), v0, v1[:, :8], 1.0, -1)
+    with pytest.raises(ValueError, match="contiguous"):
+        sinkhorn_decode(s[:, :, ::2], v0, v1[:, ::2], 1.0, 20)
 
 
 @pytest.mark.parametrize("N, K, S, all_masked", [(4, 150, 130, False), (4, 150, 130, True), (48, 512, 512, False)])

@@ -7,7 +7,8 @@
   of the output range, mean within 1e-3. Its attention equals
   ``masked_attention_plain`` on the head-split projections bit for bit.
 - Sinkhorn: the plain exp-domain decode against
-  ``sinkhorn_decode(interpret=True)``: indices equal, scores within 1e-5
+  ``sinkhorn_decode(interpret=True)`` at 0, 1 and 20 iterations, K0 = K1
+  and ragged K0 != K1: indices equal, scores within 1e-5
   (float32 sums in another order); the port's log-domain pair against the
   JAX log_sinkhorn + match_from_couplings likewise.
 - The whole matcher forward (2 of the flagship's 9 layer pairs, K=128)
@@ -103,10 +104,13 @@ def _scores(rng, B=2, K0=K, K1=K):
     return s, v0, v1, np.float32(1.3)
 
 
-def test_sinkhorn_plain_matches_pallas_interpret(rng):
-    s, v0, v1, alpha = _scores(rng)
-    ref = jsinkhorn_decode(jnp.asarray(s), jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(alpha), 20, True)
-    args = (torch.as_tensor(s), torch.as_tensor(v0), torch.as_tensor(v1), torch.tensor(alpha), 20)
+# iters 0 decodes from A = V = 1 (the TPU kernel's start); K0 != K1 both ways
+@pytest.mark.parametrize("iters", [0, 1, 20])
+@pytest.mark.parametrize("k0, k1", [(K, K), (K, 96), (72, K)])
+def test_sinkhorn_plain_matches_pallas_interpret(rng, iters, k0, k1):
+    s, v0, v1, alpha = _scores(rng, K0=k0, K1=k1)
+    ref = jsinkhorn_decode(jnp.asarray(s), jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(alpha), iters, True)
+    args = (torch.as_tensor(s), torch.as_tensor(v0), torch.as_tensor(v1), torch.tensor(alpha), iters)
     got = sinkhorn_decode_plain(*args)
     for g, r in zip(got, ref):
         r = np.asarray(r)
