@@ -12,8 +12,10 @@ Phases, each printing one line with its elapsed seconds:
 2. build: compiles the CUDA kernels from ``forest_slam_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, with its stated tolerance, its time, the plain version's
-   time and its bound (the detection kernel at all eight pyramid levels of a
-   960x600 frame, a batch of 8 frames each; the select kernel at a batch of
+   time and its bound (the detection kernel over all eight pyramid levels of
+   a batch of 8 960x600 frames in one launch, and each level alone; the
+   refine kernel at the learned paths' 8 pairs of K=1024 at 960x600 and the
+   lowres gate's 23 pairs of K=512 at 224x160; the select kernel at a batch of
    8 960x600 heat maps and at the lowres gate's three octaves of 24 frames;
    the Sinkhorn kernel at the learned paths' (8, 1024, 1024), the lowres
    gate's (23, 512, 512) and a ragged (3, 200, 170) with a pair whose
@@ -116,12 +118,36 @@ def time_ms(fn, reps: int = 5, launches: int = 1) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def device_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """Device time of one fn() call: the sum of the device activity
+    torch.profiler records over `calls` calls, divided by `calls` (host
+    enqueue and the gaps between kernels left out); the median over `reps`
+    profiled windows after one warm-up call, since a window now and then
+    records only part of its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per_window = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        per_window.append(us / 1e3 / calls)
+    return sorted(per_window)[len(per_window) // 2]
+
+
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def check_sparse(dev, gen):
+def sparse_case(dev, gen):
+    """The sparse-cost kernel against its plain version at the ORB and
+    learned paths' shape: (max error, ok, bound (ms, by), inputs)."""
     from forest_slam_tpu_torch.stereo.sparse import prefilter
     from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
 
@@ -132,19 +158,23 @@ def check_sparse(dev, gen):
     pl, pr = prefilter(imgs[0], 31.0).contiguous(), prefilter(imgs[1], 31.0).contiguous()
     xi = torch.randint(0, W, (B, K), generator=gen, device=dev, dtype=torch.int32)
     yi = torch.randint(0, H, (B, K), generator=gen, device=dev, dtype=torch.int32)
-    got = sparse_cost_rows(pl, pr, xi, yi, D, w)
-    ref = sparse_cost_rows_plain(pl, pr, xi, yi, D, w)
-    err = (got - ref).abs().max().item()
-    ok = err == 0.0
+    args = (pl, pr, xi, yi, D, w)
+    err = (sparse_cost_rows(*args) - sparse_cost_rows_plain(*args)).abs().max().item()
     S = D + w - 1
     nbytes = B * 4 * (min(H * W, K * w * w) + min(H * W, K * w * S) + 2 * K + K * D)
-    b_ms, b_by = bound(nbytes, B * K * D * w * w * 3, F32_OPS)
+    return err, err == 0.0, bound(nbytes, B * K * D * w * w * 3, F32_OPS), args
+
+
+def check_sparse(dev, gen):
+    from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
+
+    err, ok, (b_ms, b_by), args = sparse_case(dev, gen)
     return dict(
         name="sparse_cost", source="forest_slam_tpu_torch/csrc/sparse_cost.cu",
         replaces="forest_slam_tpu/stereo/pallas_sparse.py:149", tolerance="exact (0)",
         max_abs_err=err, ok=ok,
-        ms=time_ms(lambda: sparse_cost_rows(pl, pr, xi, yi, D, w)),
-        plain_ms=time_ms(lambda: sparse_cost_rows_plain(pl, pr, xi, yi, D, w)),
+        ms=time_ms(lambda: sparse_cost_rows(*args)),
+        plain_ms=time_ms(lambda: sparse_cost_rows_plain(*args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
@@ -268,65 +298,114 @@ def check_sinkhorn(dev, gen, fe):
     )
 
 
+# the refine kernel's shapes (pairs, H, W, K): the learned paths' pair batch
+# at 960x600 and the lowres gate's 23 pairs at 224x160
+REFINE_SHAPES = ((PAIR_BATCH, H, W, K), (LOWRES_FRAMES - 1, LOWRES_H, LOWRES_W, LOWRES_K))
+REFINE_TEMPLATE, REFINE_RADIUS = 8, 12
+
+
+def refine_case(dev, gen, shape):
+    """The refine kernel against its plain version at (pairs, H, W, K), with
+    template 8 and radius 12 and from a quarter to all keypoints valid a
+    pair: (max error, ok, bound (ms, by), inputs)."""
+    from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+
+    B, H_, W_, K_ = shape
+    t, R = REFINE_TEMPLATE, REFINE_RADIUS
+    n, S = 2 * R + 1, 2 * R + t
+    # integer-valued images: every SAD sum is exact, so agreement is bit for bit
+    imgs = torch.randint(0, 256, (2, B, H_, W_), generator=gen, device=dev).float()
+    img0, img1 = imgs[0].contiguous(), imgs[1].contiguous()
+    ri = lambda lo, hi: torch.randint(lo, hi, (B, K_), generator=gen, device=dev, dtype=torch.int32)
+    xi0, yi0 = ri(0, W_), ri(0, H_)
+    xi1 = (xi0 + ri(-20, 21)).clamp(0, W_ - 1).contiguous()
+    yi1 = (yi0 + ri(-20, 21)).clamp(0, H_ - 1).contiguous()
+    nvalid = torch.randint(K_ // 4, K_ + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    args = (img0, img1, xi0, yi0, xi1, yi1, t, R, nvalid)
+    err = (refine_cost_volume(*args) - refine_cost_volume_plain(*args)).abs().max().item()
+    nv = int(nvalid.sum().item())
+    nbytes = 4 * (sum(min(H_ * W_, int(v) * t * t) + min(H_ * W_, int(v) * S * S) for v in nvalid.tolist())
+                  + 4 * B * K_ + B + B * K_ * n * n)
+    return err, err == 0.0, bound(nbytes, nv * n * n * t * t * 3, F32_OPS), args
+
+
 def check_refine(dev, gen):
     from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
 
-    B, t, R = PAIR_BATCH, 8, 12
-    n, S = 2 * R + 1, 2 * R + t
-    # integer-valued images: every SAD sum is exact, so agreement is bit for bit
-    imgs = torch.randint(0, 256, (2, B, H, W), generator=gen, device=dev).float()
-    img0, img1 = imgs[0].contiguous(), imgs[1].contiguous()
-    ri = lambda lo, hi: torch.randint(lo, hi, (B, K), generator=gen, device=dev, dtype=torch.int32)
-    xi0, yi0 = ri(0, W), ri(0, H)
-    xi1 = (xi0 + ri(-20, 21)).clamp(0, W - 1).contiguous()
-    yi1 = (yi0 + ri(-20, 21)).clamp(0, H - 1).contiguous()
-    nvalid = torch.randint(K // 4, K + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
-    args = (img0, img1, xi0, yi0, xi1, yi1, t, R, nvalid)
-    got = refine_cost_volume(*args)
-    ref = refine_cost_volume_plain(*args)
-    err = (got - ref).abs().max().item()
-    ok = err == 0.0
-    nv = int(nvalid.sum().item())
-    nbytes = 4 * (sum(min(H * W, int(v) * t * t) + min(H * W, int(v) * S * S) for v in nvalid.tolist())
-                  + 4 * B * K + B + B * K * n * n)
-    b_ms, b_by = bound(nbytes, nv * n * n * t * t * 3, F32_OPS)
+    per_shape, ok = [], True
+    for shape in REFINE_SHAPES:
+        err, o, (b_ms, b_by), args = refine_case(dev, gen, shape)
+        ok &= o
+        per_shape.append(dict(shape=list(shape), max_abs_err=err, ok=o,
+                              ms=time_ms(lambda: refine_cost_volume(*args)),
+                              plain_ms=time_ms(lambda: refine_cost_volume_plain(*args)),
+                              bound_ms=b_ms, bound_by=b_by))
+    main = per_shape[0]  # the 960x600 learned paths' shape
     return dict(
         name="refine_cost", source="forest_slam_tpu_torch/csrc/refine_cost.cu",
         replaces="forest_slam_tpu/frontend/pallas_refine.py:312", tolerance="exact (0)",
-        max_abs_err=err, ok=ok,
-        ms=time_ms(lambda: refine_cost_volume(*args)),
-        plain_ms=time_ms(lambda: refine_cost_volume_plain(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_abs_err=max(p["max_abs_err"] for p in per_shape), ok=ok,
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, per_shape=per_shape,
     )
 
 
 # float32 operations of the detection kernel (csrc/detect.cu), as its data
-# gates them. Every pixel of a level: Sobel, scaling and the three products
-# (13), the box sums over rows (18), the cell reduction (1). Every pixel
-# inside the edge margin: FAST's 16 differences, 64 minima and 64 maxima over
-# circular windows, 32 to pick the best arcs and 4 to finish (180). Every
-# FAST corner there: the box sums over columns (18), the Harris response (7)
-# and 3x3 NMS (9).
-DETECT_OPS_PER_PIXEL = 32
-DETECT_OPS_PER_INTERIOR_PIXEL = 180
+# gates them. Every pixel of a level: the cell reduction (1). Every pixel
+# inside the edge margin: the exact early reject, ring points 0, 4, 8 and 12
+# (4 differences, 8 compares). Every pixel past it: the other 12
+# differences, their 24 compares into the bright and dark masks and two
+# run-of-9 tests of 8 shifts and ands (52). Every pixel of a row that holds a
+# FAST corner: Sobel, scaling and the three products (13) and the box sums
+# over rows (18). Every FAST corner: the box sums over columns (18), the
+# Harris response (7) and 3x3 NMS (9). (The earlier one-level kernel spent
+# 180 operations on FAST at every pixel inside the margin: 64 minima and 64
+# maxima over circular windows and 32 to pick the best arcs; the mask test
+# needs only whether an arc exists.)
+DETECT_OPS_PER_PIXEL = 1
+DETECT_OPS_PER_INTERIOR_PIXEL = 12
+DETECT_OPS_PER_CANDIDATE = 52
+DETECT_OPS_PER_CORNER_ROW_PIXEL = 31
 DETECT_OPS_PER_CORNER = 34
 
 
-def check_detect(dev, gen):
-    from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_plain, n_cells
-    from forest_slam_tpu_torch.frontend.fast import interior_mask, fast_score_map
+def detect_ops(img, threshold, margin):
+    """The detection kernel's operations on (B, h, w) images, as above."""
+    import torch.nn.functional as F
+
+    from forest_slam_tpu_torch.frontend.fast import fast_score_map, interior_mask
+
+    B, h, w = img.shape
+    t = max(threshold, 0.0)
+    p = F.pad(img, (3, 3, 3, 3))
+    d = [p[:, 3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - img for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+    bright = sum((x > t).int() for x in d)
+    dark = sum((x < -t).int() for x in d)
+    inside = interior_mask(h, w, max(margin, 3), img.device)
+    candidates = int((((bright >= 2) | (dark >= 2)) & inside).sum())
+    corners = (fast_score_map(img, threshold) > 0) & inside
+    return (DETECT_OPS_PER_PIXEL * B * h * w + DETECT_OPS_PER_INTERIOR_PIXEL * B * int(inside.sum())
+            + DETECT_OPS_PER_CANDIDATE * candidates + DETECT_OPS_PER_CORNER_ROW_PIXEL * w * int(corners.any(-1).sum())
+            + DETECT_OPS_PER_CORNER * int(corners.sum()))
+
+
+def detect_case(dev, gen):
+    """Random 0-255 levels at the eight pyramid shapes of a batch of 8
+    960x600 frames: (levels, (threshold, harris_block, margin))."""
     from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
 
     cfg = OrbConfig(n_features=ORB_FEATURES, n_levels=ORB_LEVELS)
-    args = (cfg.fast_threshold, cfg.harris_block, cfg.edge_margin)
     sizes, _ = _level_geometry(H, W, cfg)
-    B = FRAME_BATCH
-    err, mask_eq, idx_eq, close = 0.0, True, True, True
-    ms, plain_ms, nbytes, ops, n_finite = [], [], 0, 0, 0
-    for h, w, _ in sizes:
-        img = (torch.rand((B, h, w), generator=gen, device=dev) * 255.0).contiguous()
-        v, i = detect_pooled(img, *args)
-        rv, ri = detect_pooled_plain(img, *args)
+    levels = [(torch.rand((FRAME_BATCH, h, w), generator=gen, device=dev) * 255.0).contiguous() for h, w, _ in sizes]
+    return levels, (cfg.fast_threshold, cfg.harris_block, cfg.edge_margin)
+
+
+def detect_agreement(got, ref):
+    """Per-level (vals, idx) of the kernel against the plain version's:
+    (max error, finite masks equal, indices equal, values within rtol 1e-5,
+    finite cells)."""
+    err, mask_eq, idx_eq, close, n_finite = 0.0, True, True, True, 0
+    for (v, i), (rv, ri) in zip(got, ref):
         fin = torch.isfinite(rv)
         n_finite += int(fin.sum().item())
         mask_eq &= torch.equal(torch.isfinite(v), fin)
@@ -334,26 +413,31 @@ def check_detect(dev, gen):
         if mask_eq and fin.any():
             err = max(err, (v[fin] - rv[fin]).abs().max().item())
             close &= torch.allclose(v[fin], rv[fin], rtol=1e-5, atol=0.0)
-        ms.append(time_ms(lambda: detect_pooled(img, *args)))
-        plain_ms.append(time_ms(lambda: detect_pooled_plain(img, *args)))
-        ncy, ncx = n_cells(h, w)
-        interior = interior_mask(h, w, cfg.edge_margin, dev)
-        corners = int(((fast_score_map(img, cfg.fast_threshold) > 0) & interior).sum())
-        nbytes += 4 * B * h * w + 8 * B * ncy * ncx
-        ops += (DETECT_OPS_PER_PIXEL * B * h * w + DETECT_OPS_PER_INTERIOR_PIXEL * B * int(interior.sum())
-                + DETECT_OPS_PER_CORNER * corners)
-    b_ms, b_by = bound(nbytes, ops, F32_OPS)
-    n = len(sizes)
+    return err, mask_eq, idx_eq, close, n_finite
+
+
+def check_detect(dev, gen):
+    from forest_slam_tpu_torch.frontend.detect_kernel import (
+        detect_pooled, detect_pooled_levels, detect_pooled_plain, n_cells)
+
+    levels, args = detect_case(dev, gen)
+    plain = lambda: [detect_pooled_plain(lv, *args) for lv in levels]
+    err, mask_eq, idx_eq, close, n_finite = detect_agreement(detect_pooled_levels(levels, *args), plain())
+    nbytes = sum(4 * lv.numel() + 8 * lv.shape[0] * n_cells(*lv.shape[1:])[0] * n_cells(*lv.shape[1:])[1]
+                 for lv in levels)
+    b_ms, b_by = bound(nbytes, sum(detect_ops(lv, args[0], args[2]) for lv in levels), F32_OPS)
     return dict(
         name="detect", source="forest_slam_tpu_torch/csrc/detect.cu",
         replaces="forest_slam_tpu/frontend/pallas_detect.py:277",
         tolerance="same finite mask, values rtol 1e-5, indices equal",
         max_abs_err=err, mask_equal=mask_eq, indices_equal=idx_eq, finite_cells=n_finite,
         ok=mask_eq and idx_eq and close and n_finite > 0,
-        # per launch, the mean over the eight level shapes: launches x ms is
-        # the kernel's time in a run
-        ms=sum(ms) / n, plain_ms=sum(plain_ms) / n, bound_ms=b_ms / n, bound_by=b_by, library_ms=None,
-        level_ms=ms,
+        # per launch, one launch over the eight levels of a batch of frames:
+        # launches x ms is the kernel's time in a run
+        ms=time_ms(lambda: detect_pooled_levels(levels, *args)), plain_ms=time_ms(plain),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        # each level alone, one launch of detect_pooled each
+        level_ms=[time_ms(lambda: detect_pooled(lv, *args)) for lv in levels],
     )
 
 
@@ -370,23 +454,36 @@ def select_ops_per_pixel(radius):
     return 4 * radius + 4
 
 
-def check_select(dev, gen):
+# the select kernel's shapes: a batch of 8 960x600 heat maps and the lowres
+# gate's three octaves of 24 frames
+def select_shapes():
     from forest_slam_tpu_torch.frontend.learned import octave_shape
-    from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
 
     s8 = 32  # the flagship's stem 4 x 8
-    shapes = [(FRAME_BATCH, H, W)] + [(LOWRES_FRAMES, *octave_shape(LOWRES_H, LOWRES_W, s, s8))
-                                       for s in LOWRES_SCALES]
+    return [(FRAME_BATCH, H, W)] + [(LOWRES_FRAMES, *octave_shape(LOWRES_H, LOWRES_W, s, s8)) for s in LOWRES_SCALES]
+
+
+def select_case(dev, gen, shape):
+    """The select kernel against its plain version on peaky heat of (B, H,
+    W): (bit-exact, kept blocks, bound (ms, by), heat)."""
+    from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
+
+    heat = peaky_heat(dev, gen, shape)
+    v, i = nms_block_max(heat)
+    rv, ri = nms_block_max_plain(heat)
+    B_, H_, W_ = shape
+    b = bound(4 * B_ * H_ * W_ + 8 * B_ * (H_ // 4) * (W_ // 4), select_ops_per_pixel(4) * B_ * H_ * W_, F32_OPS)
+    return torch.equal(v, rv) and torch.equal(i, ri), int((rv > 0).sum().item()), b, heat
+
+
+def check_select(dev, gen):
+    from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
+
     exact, per_shape, n_kept = True, [], 0
-    for shape in shapes:
-        heat = peaky_heat(dev, gen, shape)
-        v, i = nms_block_max(heat)
-        rv, ri = nms_block_max_plain(heat)
-        exact &= torch.equal(v, rv) and torch.equal(i, ri)
-        n_kept += int((rv > 0).sum().item())
-        B_, H_, W_ = shape
-        b_ms, b_by = bound(4 * B_ * H_ * W_ + 8 * B_ * (H_ // 4) * (W_ // 4),
-                           select_ops_per_pixel(4) * B_ * H_ * W_, F32_OPS)
+    for shape in select_shapes():
+        ex, kept, (b_ms, b_by), heat = select_case(dev, gen, shape)
+        exact &= ex
+        n_kept += kept
         per_shape.append(dict(shape=list(shape), ms=time_ms(lambda: nms_block_max(heat)),
                               plain_ms=time_ms(lambda: nms_block_max_plain(heat)), bound_ms=b_ms, bound_by=b_by))
     main = per_shape[0]  # the 960x600 paths' shape
@@ -575,9 +672,14 @@ def main() -> int:
                 + (f"; scaled_dot_product_attention {r['library_ms']:.4f} ms" if r["library_ms"] is not None else ""))
     by_name = {r["name"]: r for r in results}
     det = by_name["detect"]
-    log(f"  detect at the eight levels (B={FRAME_BATCH}): mask equal {det['mask_equal']}, indices equal "
-        f"{det['indices_equal']}, {det['finite_cells']} finite cells; kernel ms per level "
+    log(f"  detect over the eight levels (B={FRAME_BATCH}) in one launch: mask equal {det['mask_equal']}, "
+        f"indices equal {det['indices_equal']}, {det['finite_cells']} finite cells; one level a launch, ms "
         f"{[round(t, 4) for t in det['level_ms']]}")
+    ref = by_name["refine_cost"]
+    log("  refine_cost per shape (pairs, H, W, K): "
+        + "; ".join(f"{tuple(p['shape'])} max error {p['max_abs_err']:.3g}, {p['ms']:.4f} ms vs plain "
+                    f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms by {p['bound_by']}"
+                    for p in ref["per_shape"]))
     sel = by_name["select"]
     log(f"  select: {sel['kept_blocks']} kept blocks, bit-exact at every shape; per shape (B, H, W): "
         + "; ".join(f"{tuple(p['shape'])} {p['ms']:.4f} ms vs plain {p['plain_ms']:.4f} ms, bound "
@@ -657,6 +759,8 @@ def main() -> int:
     launches_by_path["orb"] = launches
     tracked, err = report("ORB", out, t_run, launches)
     failures += path_failures("ORB", out, tracked, err, launches, ("detect", "sparse_cost"))
+    if launches["detect"] != N_FRAMES // FRAME_BATCH:  # one launch per frame batch, all levels in it
+        failures.append(f"ORB: {launches['detect']} detect launches, not one per frame batch")
     plain_orb = orb_cfg._replace(orb=orb_cfg.orb._replace(detect_path="plain"),
                                  sparse=orb_cfg.sparse._replace(cost_path="plain"))
     plain_out, _, t_plain = drive_path(wrappers, run_orb(plain_orb))

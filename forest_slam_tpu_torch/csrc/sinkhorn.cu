@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_setup.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -611,35 +613,6 @@ sinkhorn_cluster_kernel(const float* __restrict__ scores, const uint8_t* __restr
   cluster.sync();
 }
 
-// The opt-in shared memory of the current device, with both attributes of
-// the kernel set once per device.
-struct DeviceSetup {
-  static constexpr int kDevices = 64;
-  int cap[kDevices] = {};
-
-  cudaError_t get(int* out) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < kDevices && cap[dev] > 0) {
-      *out = cap[dev];
-      return cudaSuccess;
-    }
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute((const void*)sinkhorn_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute((const void*)sinkhorn_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    if (dev < kDevices) cap[dev] = optin;
-    *out = optin;
-    return cudaSuccess;
-  }
-};
-
 DeviceSetup device_setup;
 
 void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B, const Layout& L,
@@ -670,7 +643,7 @@ void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B, c
 extern "C" int fs_sinkhorn_plan(int B, int K0, int K1, int cluster, int* out) {
   if (B < 1 || K0 < 1 || K1 < 1 || cluster < 0 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
   int cap = 0;
-  cudaError_t err = device_setup.get(&cap);
+  cudaError_t err = device_setup.get((const void*)sinkhorn_cluster_kernel, true, &cap);
   if (err != cudaSuccess) return (int)err;
   bool any_layout = false, found = false;
   int best_waves = 0;
@@ -718,7 +691,7 @@ extern "C" int fs_sinkhorn_decode(const float* scores, const uint8_t* valid0, co
   if (B < 1 || K0 < 1 || K1 < 1 || iters < 0 || cluster < 1 || cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   int cap = 0;
-  cudaError_t err = device_setup.get(&cap);
+  cudaError_t err = device_setup.get((const void*)sinkhorn_cluster_kernel, true, &cap);
   if (err != cudaSuccess) return (int)err;
   Layout L;
   if (!make_layout(K0, K1, cluster, cap, &L) || (L.Rg > 0 && spill == nullptr))

@@ -15,8 +15,11 @@ kernel took the column argmax of row maxima instead). An empty cell reports
 -inf and the index of its top-left pixel.
 
 The kernel is ``csrc/detect.cu``; :func:`detect_pooled_plain` computes the
-same function with tensor ops. :func:`detect_pooled` launches the kernel for
-CUDA tensors and takes the plain version only for CPU tensors.
+same function with tensor ops. :func:`detect_pooled_levels` takes every
+pyramid level of a batch and launches the kernel once for all of them on
+CUDA tensors; :func:`detect_pooled` is its one-level case. Both take the
+plain version only for CPU tensors, and both count their launches on
+``detect_pooled.launches``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from forest_slam_tpu_torch.utils.filters import maxpool2d_same
 CELL = 8
 HARRIS_K = 0.04  # OpenCV ORB's harrisK
 MAX_HARRIS_BLOCK = 7  # the kernel's halo covers a box radius of 3
+TILE = 32  # a block's output tile: TILE x TILE pixels
+MAX_LEVELS = 16  # levels one launch takes (the kernel's level table)
 
 
 def n_cells(H: int, W: int) -> tuple[int, int]:
@@ -67,28 +72,81 @@ def detect_pooled_plain(images, threshold: float = 20.0, harris_block: int = 7, 
     return vals, (ys * W + xs).to(torch.int32)
 
 
+def level_table(shapes, batch: int):
+    """The block layout of one launch over levels of (h, w) ``shapes``:
+    (order, start), where ``order`` lists the levels with the most tiles
+    first (equal counts in their given order) and ``start[i]`` is the first
+    block of level ``order[i]``, each level taking its tiles times ``batch``
+    blocks; ``start[-1]`` is the grid."""
+    tiles = [-(-h // TILE) * -(-w // TILE) for h, w in shapes]
+    order = sorted(range(len(shapes)), key=lambda i: -tiles[i])
+    start = [0]
+    for i in order:
+        start.append(start[-1] + tiles[i] * batch)
+    return order, start
+
+
+def _check_kernel_inputs(levels, harris_block):
+    for images in levels:
+        _check_image(images)
+        if images.dtype != torch.float32 or not images.is_contiguous():
+            raise ValueError(f"detect_pooled needs contiguous float32 images; got {images.dtype}")
+        if images.device != levels[0].device or images.shape[0] != levels[0].shape[0]:
+            raise ValueError("detect_pooled_levels takes levels of one batch on one device")
+    if harris_block % 2 == 0 or not 1 <= harris_block <= MAX_HARRIS_BLOCK:
+        raise ValueError(f"the detect kernel takes an odd harris_block <= {MAX_HARRIS_BLOCK}; got {harris_block}")
+
+
+def _launch(levels, threshold, harris_block, margin):
+    """One kernel launch over at most MAX_LEVELS CUDA levels of one batch."""
+    B = levels[0].shape[0]
+    order, start = level_table([lv.shape[1:] for lv in levels], B)
+    outs = []
+    for lv in levels:
+        shape = (B, *n_cells(*lv.shape[1:]))
+        outs.append((torch.empty(shape, dtype=torch.float32, device=lv.device),
+                     torch.empty(shape, dtype=torch.int32, device=lv.device)))
+    if B == 0:
+        return outs
+    n = len(levels)
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+    ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
+    F32 = ctypes.c_float
+    fn = _build.function("fs_detect_levels", *[_build.P] * 6, *[_build.I] * 4, F32, F32, F32, _build.P)
+    rc = fn(ptrs([levels[i] for i in order]), ptrs([outs[i][0] for i in order]),
+            ptrs([outs[i][1] for i in order]), ints([levels[i].shape[1] for i in order]),
+            ints([levels[i].shape[2] for i in order]), ints(start), n, B, harris_block, margin,
+            float(threshold), 1.0 / ((1 << 2) * harris_block * 255.0), HARRIS_K,
+            _build.stream_ptr(levels[0].device))
+    _build.check("fs_detect_levels", rc)
+    detect_pooled.launches += 1
+    return outs
+
+
+def detect_pooled_levels(levels, threshold: float = 20.0, harris_block: int = 7, margin: int = 16):
+    """Cell-pooled detection of each (B, h_l, w_l) float32 level of one batch:
+    a list of (vals, idx) per level, as :func:`detect_pooled` gives them. For
+    CUDA levels one kernel launch for every MAX_LEVELS levels; for CPU levels
+    the plain version, level by level."""
+    levels = list(levels)
+    if not levels:
+        return []
+    if all(lv.device.type == "cpu" for lv in levels):
+        return [detect_pooled_plain(lv, threshold, harris_block, margin) for lv in levels]
+    _check_kernel_inputs(levels, harris_block)
+    outs = []
+    for i in range(0, len(levels), MAX_LEVELS):
+        outs += _launch(levels[i:i + MAX_LEVELS], threshold, harris_block, margin)
+    return outs
+
+
 def detect_pooled(images, threshold: float = 20.0, harris_block: int = 7, margin: int = 16):
     """Cell-pooled detection of (B, H, W) float32 images: the CUDA kernel for
     CUDA tensors (one launch per call), the plain version for CPU tensors."""
     if images.device.type == "cpu":
         return detect_pooled_plain(images, threshold, harris_block, margin)
-    _check_image(images)
-    if images.dtype != torch.float32 or not images.is_contiguous():
-        raise ValueError(f"detect_pooled needs contiguous float32 images; got {images.dtype}")
-    if harris_block % 2 == 0 or not 1 <= harris_block <= MAX_HARRIS_BLOCK:
-        raise ValueError(f"the detect kernel takes an odd harris_block <= {MAX_HARRIS_BLOCK}; got {harris_block}")
-    B, H, W = images.shape
-    ncy, ncx = n_cells(H, W)
-    vals = torch.empty((B, ncy, ncx), dtype=torch.float32, device=images.device)
-    idx = torch.empty((B, ncy, ncx), dtype=torch.int32, device=images.device)
-    F32 = ctypes.c_float
-    fn = _build.function("fs_detect_pooled", *[_build.P] * 3, *[_build.I] * 5, F32, F32, F32, _build.P)
-    rc = fn(images.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, H, W, harris_block, margin,
-            float(threshold), 1.0 / ((1 << 2) * harris_block * 255.0), HARRIS_K,
-            _build.stream_ptr(images.device))
-    _build.check("fs_detect_pooled", rc)
-    detect_pooled.launches += 1
-    return vals, idx
+    _check_kernel_inputs([images], harris_block)
+    return _launch([images], threshold, harris_block, margin)[0]
 
 
 detect_pooled.launches = 0

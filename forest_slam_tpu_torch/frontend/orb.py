@@ -8,9 +8,10 @@ descriptors from a 31x31 patch of the sigma-2 blurred level. The BRIEF
 pattern is the JAX package's seeded Gaussian sample, rebuilt here with numpy
 from the same seed, so the descriptors are the same bits.
 
-Detection runs per level through :func:`detect_pooled` (the CUDA kernel
+The pyramid is built first; detection then takes every level of the batch
+in one call of :func:`detect_pooled_levels` (one launch of the CUDA kernel
 ``csrc/detect.cu`` for CUDA tensors, its plain version for CPU tensors), or
-through the plain version on any device with ``detect_path="plain"``.
+the plain version level by level on any device with ``detect_path="plain"``.
 BRIEF compares the two rotated pattern points of each bit directly
 (``I[p1] > I[p0]``): the same bits as the JAX package's one-hot difference
 matmul, with no matmul that TF32 could round.
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_plain
+from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled_levels, detect_pooled_plain
 from forest_slam_tpu_torch.frontend.fast import top_k
 from forest_slam_tpu_torch.utils.filters import gaussian_blur, resize_bilinear
 
@@ -126,18 +127,23 @@ def _level_geometry(height: int, width: int, cfg: OrbConfig):
 # --------------------------------------------------------------------------
 
 
-def _select_keypoints(level_img: torch.Tensor, budget: int, cfg: OrbConfig):
-    """Cell-pooled detection, then the top ``budget`` cells (equal scores in
-    cell order, as ``jax.lax.top_k``). Returns (xy (B, K, 2) float32 level
-    coords, score (B, K), valid (B, K))."""
-    B, H, W = level_img.shape
+def _detect(levels, cfg: OrbConfig):
+    """Cell-pooled detection of every level: a list of (vals, idx)."""
     args = (cfg.fast_threshold, cfg.harris_block, cfg.edge_margin)
     if cfg.detect_path == "auto":
-        vals, idx = detect_pooled(level_img, *args)
-    elif cfg.detect_path == "plain":
-        vals, idx = detect_pooled_plain(level_img, *args)
-    else:
-        raise ValueError(f"unknown detect_path {cfg.detect_path!r}")
+        return detect_pooled_levels(levels, *args)
+    if cfg.detect_path == "plain":
+        return [detect_pooled_plain(lv, *args) for lv in levels]
+    raise ValueError(f"unknown detect_path {cfg.detect_path!r}")
+
+
+def _select_keypoints(level_img: torch.Tensor, budget: int, cfg: OrbConfig, pooled=None):
+    """The top ``budget`` cells of the cell-pooled detection ``pooled`` of
+    the level (detected here when None), equal scores in cell order, as
+    ``jax.lax.top_k``. Returns (xy (B, K, 2) float32 level coords, score
+    (B, K), valid (B, K))."""
+    B, H, W = level_img.shape
+    vals, idx = _detect([level_img], cfg)[0] if pooled is None else pooled
     flat_v = vals.reshape(B, -1)
     flat_i = idx.reshape(B, -1)
     if budget > flat_v.shape[1]:  # tiny pyramid level: fewer cells
@@ -189,8 +195,9 @@ def _orient_and_describe(patches: torch.Tensor, cfg: OrbConfig):
     return angle, packed
 
 
-def _extract_level(level_img: torch.Tensor, budget: int, scale: float, lvl: int, cfg: OrbConfig) -> OrbFeatures:
-    xy, resp, valid = _select_keypoints(level_img, budget, cfg)
+def _extract_level(level_img: torch.Tensor, pooled, budget: int, scale: float, lvl: int,
+                   cfg: OrbConfig) -> OrbFeatures:
+    xy, resp, valid = _select_keypoints(level_img, budget, cfg, pooled)
     # one patch slab from the blurred level serves orientation and BRIEF
     # (the JAX package's documented deviation from ORB's raw-image angle)
     blurred = gaussian_blur(level_img, sigma=2.0, radius=3)
@@ -214,14 +221,15 @@ def _extract_level(level_img: torch.Tensor, budget: int, scale: float, lvl: int,
 @torch.no_grad()
 def extract_orb(images: torch.Tensor, cfg: OrbConfig = OrbConfig()) -> OrbFeatures:
     """ORB features of grayscale images (B, H, W) in [0, 255]:
-    ``cfg.n_features`` slots per image. Level l is resized from level l-1."""
+    ``cfg.n_features`` slots per image. Level l is resized from level l-1;
+    every level is detected in one call before any is described."""
     images = images.float().contiguous()
     H, W = images.shape[-2:]
     sizes, budgets = _level_geometry(H, W, cfg)
-    per_level = []
-    level_img = images
-    for lvl, ((h, w, scale), budget) in enumerate(zip(sizes, budgets)):
-        if lvl > 0:
-            level_img = resize_bilinear(level_img, h, w).contiguous()
-        per_level.append(_extract_level(level_img, budget, scale, lvl, cfg))
+    levels = [images]
+    for h, w, _ in sizes[1:]:
+        levels.append(resize_bilinear(levels[-1], h, w).contiguous())
+    pooled = _detect(levels, cfg)
+    per_level = [_extract_level(lv, pl, budget, scale, lvl, cfg)
+                 for lvl, (lv, pl, (_, _, scale), budget) in enumerate(zip(levels, pooled, sizes, budgets))]
     return OrbFeatures(*(torch.cat(parts, dim=1) for parts in zip(*per_level)))

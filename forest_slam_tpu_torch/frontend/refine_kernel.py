@@ -1,7 +1,8 @@
 """Match-refinement SAD cost volume: the CUDA kernel and its plain version.
 
 Counterpart of frontend/pallas_refine.py (``refine_cost_volume_pallas``).
-The kernel is ``csrc/refine_cost.cu``; :func:`refine_cost_volume_plain`
+The kernel is ``csrc/refine_cost.cu`` (one warp per keypoint, several
+keypoints a block: :func:`keypoints_per_block`); :func:`refine_cost_volume_plain`
 computes the same function with tensor ops (the tap accumulation of
 frontend/refine.py:_cost_volume_xla), and like the kernel leaves rows at or
 past ``nvalid`` as exact zeros. :func:`refine_cost_volume` launches the
@@ -51,6 +52,12 @@ def refine_cost_volume_plain(img0, img1, xi0, yi0, xi1, yi1, template: int, radi
             cost = cost + (win[..., ty:ty + n, tx:tx + n] - tpl[..., ty:ty + 1, tx:tx + 1]).abs()
     live = torch.arange(K, device=dev)[None, :] < nvalid[:, None]
     return torch.where(live[..., None, None], cost, torch.zeros_like(cost))
+
+
+def keypoints_per_block(template: int, radius: int) -> int:
+    """Keypoints one block of the kernel takes at this template and radius
+    (builds the kernels on first use)."""
+    return _build.function("fs_refine_keypoints_per_block", _build.I, _build.I)(template, radius)
 
 
 def refine_cost_volume(img0, img1, xi0, yi0, xi1, yi1, template: int, radius: int, nvalid):

@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
-"""Time the attention, fused GNN-layer and Sinkhorn kernels of one checkout on one GPU.
+"""Time the port's seven kernels of one checkout on one GPU.
 
-    python3 scripts/torch_kernel_ab.py [--root DIR] [--sinkhorn-clusters 8,12,16]
+    python3 scripts/torch_kernel_ab.py [--root DIR] [--kernels detect,refine_cost] [--sinkhorn-clusters 8,12,16]
 
 imports ``forest_slam_tpu_torch`` from ``DIR`` (default: this repository),
-builds its kernels, and times ``attention_forward`` at (16, 4, 1024, 64)
-beside ``scaled_dot_product_attention``, ``gnn_layer`` (the flagship
-checkpoint's first cross layer) at 16 sequences of 1024 x 256 and at the
-lowres gate's 48 of 512 x 256, and ``sinkhorn_decode`` (20 iterations, the
-flagship's dustbin score) at (8, 1024, 1024) and at the lowres gate's (23,
-512, 512). The inputs and the check against the plain versions are
-``chip_smoke.py``'s (``attention_case``, ``gnn_case``, ``sinkhorn_case``),
-loaded from this repository whatever ``DIR`` is, so both checkouts get the
-same inputs and the same tolerances. ``--sinkhorn-clusters`` also times the
-Sinkhorn kernel with each of the given cluster sizes forced, at both shapes
-(checkouts whose wrapper has ``_launch(..., cluster)``). Each time is the median of 7 CUDA-event
-timings of 20 launches each, after a warm-up, so it leaves out the gaps
-between launches that ``chip_smoke.py``'s one launch per event pair holds.
-The last line of its output is one JSON object with the times, whether each
-kernel was within its tolerance, the card's name and its power limit.
+builds its kernels, and times, at ``chip_smoke.py``'s shapes and on its
+inputs: ``attention_forward`` at (16, 4, 1024, 64) beside
+``scaled_dot_product_attention``; ``gnn_layer`` (the flagship checkpoint's
+first cross layer) at 16 sequences of 1024 x 256 and at the lowres gate's 48
+of 512 x 256; ``sinkhorn_decode`` (20 iterations, the flagship's dustbin
+score) at (8, 1024, 1024) and at the lowres gate's (23, 512, 512);
+detection over the eight pyramid levels of a batch of 8 960x600 frames (one
+``detect_pooled_levels`` call where the checkout has it, else eight
+``detect_pooled`` calls), on random levels and on the levels of 8 rendered
+corridor frames; ``refine_cost_volume`` at 8 pairs of K=1024 at 960x600 and
+the lowres gate's 23 pairs of K=512; ``sparse_cost_rows`` at 8 frames of
+K=1024; ``nms_block_max`` at 8 960x600 heat maps. The case functions (inputs
+and the check against the plain versions) are ``chip_smoke.py``'s, loaded
+from this repository whatever ``DIR`` is, so both checkouts get the same
+inputs and the same tolerances.
+
+Two times per kernel and call: ``ms``, the median of 7 CUDA-event timings of
+20 calls back to back, after a warm-up (it holds the gaps between launches
+where the host enqueues more slowly than the card runs a small kernel), and
+``device_ms``, the device time ``torch.profiler`` records over 20 calls,
+divided by 20 (the median of three such windows). ``--sinkhorn-clusters``
+also times the Sinkhorn kernel with each of the given cluster sizes forced
+(checkouts whose wrapper has ``_launch(..., cluster)``). ``--kernels``
+times only the named kernels (attention, gnn_layer, sinkhorn_decode, detect,
+refine_cost, sparse_cost, select; default all). The last line of
+its output is one JSON object with the times, whether each kernel was within
+its tolerance, the card's name and its power limit.
 
 To compare two versions of the kernels on one card, run it in turns within
 one command, one process per run, for example with the parent commit's
@@ -52,10 +64,13 @@ def load_chip_smoke():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO)
+    ap.add_argument("--kernels", default="attention,gnn_layer,sinkhorn_decode,detect,refine_cost,sparse_cost,select",
+                    help="comma-separated kernels to time")
     ap.add_argument("--sinkhorn-clusters", default="", help="comma-separated cluster sizes to force")
     opts = ap.parse_args()
     root = os.path.abspath(opts.root)
     clusters = [int(c) for c in opts.sinkhorn_clusters.split(",") if c]
+    kernels = set(opts.kernels.split(","))
     sys.path.insert(0, root)
 
     import torch
@@ -66,10 +81,14 @@ def main() -> int:
         return 1
     smoke = load_chip_smoke()
     from forest_slam_tpu_torch import _build
+    from forest_slam_tpu_torch.frontend import detect_kernel
     from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward
     from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer
+    from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume
+    from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max
     from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode
     from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
+    from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows
 
     if not _build.__file__.startswith(root):
         print(f"FAIL: imported {_build.__file__}, not the package under {root}", file=sys.stderr)
@@ -84,45 +103,106 @@ def main() -> int:
     layer = fe.superglue.layers["cross_0"]
     ws, heads = layer.weights(), layer.num_heads
 
-    def timed(fn):
-        return smoke.time_ms(fn, reps=7, launches=20)
+    out = {"label": os.path.relpath(root), "device": smoke.nvidia_smi_line(), "kernels": {}}
 
-    out = {"label": os.path.relpath(root), "device": smoke.nvidia_smi_line()}
+    def timed(name, ok, fn, **extra):
+        out["kernels"][name] = dict(ok=bool(ok), ms=smoke.time_ms(fn, reps=7, launches=20),
+                                    device_ms=smoke.device_ms(fn, calls=20), **extra)
+
+    def detect_call(levels, args):
+        if hasattr(detect_kernel, "detect_pooled_levels"):
+            return lambda: detect_kernel.detect_pooled_levels(levels, *args)
+        return lambda: [detect_kernel.detect_pooled(lv, *args) for lv in levels]
+
     with torch.no_grad():
-        shape = (2 * smoke.PAIR_BATCH, smoke.HEADS, smoke.K, smoke.K)
-        *_, ok, _, (q, k, v, mask, scale) = smoke.attention_case(dev, gen, shape)
-        amask = mask[:, None, None, :]
-        out["attention_ok"] = ok
-        out["attention_ms"] = timed(lambda: attention_forward(q, k, v, mask, scale))
-        out["sdpa_ms"] = timed(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale))
-        for name, (N, L) in (("gnn_layer", (2 * smoke.PAIR_BATCH, smoke.K)),
-                             ("gnn_layer_lowres", (2 * smoke.LOWRES_FRAMES, smoke.LOWRES_K))):
-            *_, ok, (x, src, m) = smoke.gnn_case(dev, gen, ws, heads, N, L, L, False)
-            out[f"{name}_ok"] = ok
-            out[f"{name}_ms"] = timed(lambda: gnn_layer(x, src, m, ws, heads))
-        iters = fe.cfg.superglue.sinkhorn_iterations
-        for name, shape in (("sinkhorn", smoke.SINKHORN_SHAPES[0]), ("sinkhorn_lowres", smoke.SINKHORN_SHAPES[1])):
-            *_, ok, args = smoke.sinkhorn_case(dev, gen, shape, fe.superglue.bin_score, iters)
-            out[f"{name}_ok"] = ok
-            out[f"{name}_ms"] = timed(lambda: sinkhorn_decode(*args))
-            if clusters:
-                from forest_slam_tpu_torch.frontend.sinkhorn_kernel import _launch, launch_plan
+        if "attention" in kernels:
+            shape = (2 * smoke.PAIR_BATCH, smoke.HEADS, smoke.K, smoke.K)
+            *_, ok, _, (q, k, v, mask, scale) = smoke.attention_case(dev, gen, shape)
+            amask = mask[:, None, None, :]
+            timed("attention", ok, lambda: attention_forward(q, k, v, mask, scale))
+            timed("sdpa", True, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale))
+        if "gnn_layer" in kernels:
+            for name, (N, L) in (("gnn_layer", (2 * smoke.PAIR_BATCH, smoke.K)),
+                                 ("gnn_layer_lowres", (2 * smoke.LOWRES_FRAMES, smoke.LOWRES_K))):
+                *_, ok, (x, src, m) = smoke.gnn_case(dev, gen, ws, heads, N, L, L, False)
+                timed(name, ok, lambda: gnn_layer(x, src, m, ws, heads))
+        if "sinkhorn_decode" in kernels:
+            iters = fe.cfg.superglue.sinkhorn_iterations
+            for name, shape in (("sinkhorn", smoke.SINKHORN_SHAPES[0]), ("sinkhorn_lowres", smoke.SINKHORN_SHAPES[1])):
+                *_, ok, args = smoke.sinkhorn_case(dev, gen, shape, fe.superglue.bin_score, iters)
+                timed(name, ok, lambda: sinkhorn_decode(*args))
+                if clusters:
+                    from forest_slam_tpu_torch.frontend.sinkhorn_kernel import _launch, launch_plan
 
-                out[f"{name}_by_cluster"] = {
-                    c: dict(launch_plan(*shape[:3], dev, c), ms=timed(lambda: _launch(*args, cluster=c)))
-                    for c in clusters}
-    ok = all(v for k, v in out.items() if k.endswith("_ok"))
-    print(f"{out['label']}: attention {out['attention_ms']:.4f} ms (sdpa {out['sdpa_ms']:.4f} ms), gnn_layer "
-          f"{out['gnn_layer_ms']:.4f} ms, lowres {out['gnn_layer_lowres_ms']:.4f} ms, sinkhorn_decode "
-          f"{out['sinkhorn_ms']:.4f} ms, lowres {out['sinkhorn_lowres_ms']:.4f} ms on {out['device']}; within "
-          f"tolerance: {ok}", flush=True)
-    for name in ("sinkhorn", "sinkhorn_lowres"):
-        for c, r in out.get(f"{name}_by_cluster", {}).items():
-            print(f"  {name} with clusters of {c}: {r['ms']:.4f} ms ({r['rows_per_cta']} rows per CTA, "
-                  f"{r['smem_rows']} in shared memory, {r['l2_rows']} in L2, {r['active_clusters']} clusters "
-                  f"active, {r['waves']} wave(s))", flush=True)
+                    out["kernels"][name]["by_cluster"] = {
+                        c: dict(launch_plan(*shape[:3], dev, c), ms=smoke.time_ms(lambda: _launch(*args, cluster=c),
+                                                                                 reps=7, launches=20))
+                        for c in clusters}
+        if "detect" in kernels:
+            levels, dargs = smoke.detect_case(dev, gen)
+            plain = [detect_kernel.detect_pooled_plain(lv, *dargs) for lv in levels]
+            ok = all(smoke.detect_agreement(detect_call(levels, dargs)(), plain)[1:4])
+            timed("detect", ok, detect_call(levels, dargs))
+            # the same launch on the levels of rendered frames, where FAST
+            # fires far less often than on noise
+            il = smoke.render_frames(dev, smoke.H, smoke.W, smoke.FRAME_BATCH)[0].contiguous()
+            from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
+            from forest_slam_tpu_torch.utils.filters import resize_bilinear
+
+            frames = [il]
+            for h, w, _ in _level_geometry(smoke.H, smoke.W, OrbConfig())[0][1:]:
+                frames.append(resize_bilinear(frames[-1], h, w).contiguous())
+            plain = [detect_kernel.detect_pooled_plain(lv, *dargs) for lv in frames]
+            ok = all(smoke.detect_agreement(detect_call(frames, dargs)(), plain)[1:4])
+            timed("detect_rendered", ok, detect_call(frames, dargs), corners=corner_shares(frames, dargs))
+        if "refine_cost" in kernels:
+            for name, shape in zip(("refine_cost", "refine_cost_lowres"), smoke.REFINE_SHAPES):
+                _, ok, _, args = smoke.refine_case(dev, gen, shape)
+                timed(name, ok, lambda: refine_cost_volume(*args))
+        if "sparse_cost" in kernels:
+            _, ok, _, args = smoke.sparse_case(dev, gen)
+            timed("sparse_cost", ok, lambda: sparse_cost_rows(*args))
+        if "select" in kernels:
+            ok, _, _, heat = smoke.select_case(dev, gen, smoke.select_shapes()[0])
+            timed("select", ok, lambda: nms_block_max(heat))
+    ok = all(r["ok"] for r in out["kernels"].values())
+    print(f"{out['label']} on {out['device']}; within tolerance: {ok}", flush=True)
+    for name, r in out["kernels"].items():
+        print(f"  {name}: {r['ms']:.4f} ms back to back, {r['device_ms']:.4f} ms device time a call"
+              + ("" if r["ok"] else " OUT OF TOLERANCE"), flush=True)
+        for c, rc in r.get("by_cluster", {}).items():
+            print(f"    clusters of {c}: {rc['ms']:.4f} ms ({rc['rows_per_cta']} rows per CTA, "
+                  f"{rc['smem_rows']} in shared memory, {rc['l2_rows']} in L2, {rc['active_clusters']} clusters "
+                  f"active, {rc['waves']} wave(s))", flush=True)
+    if "detect_rendered" in out["kernels"]:
+        print(f"  rendered levels: {out['kernels']['detect_rendered']['corners']}", flush=True)
     print(json.dumps(out), flush=True)
     return 0 if ok else 1
+
+
+def corner_shares(levels, args):
+    """Over all levels: the share of pixels inside the margin that are FAST
+    corners, and the shares of 32x32 tiles and of rows that hold one."""
+    import torch
+    import torch.nn.functional as F
+
+    from forest_slam_tpu_torch.frontend.fast import fast_score_map, interior_mask
+
+    threshold, _, margin = args
+    n = dict(pixels=0, corners=0, rows=0, corner_rows=0, tiles=0, corner_tiles=0)
+    for lv in levels:
+        B, h, w = lv.shape
+        inside = interior_mask(h, w, margin, lv.device)
+        corners = (fast_score_map(lv, threshold) > 0) & inside
+        tiles = F.max_pool2d(corners.float()[:, None], 32, ceil_mode=True)
+        n["pixels"] += B * int(inside.sum())
+        n["corners"] += int(corners.sum())
+        n["rows"] += B * h
+        n["corner_rows"] += int(corners.any(-1).sum())
+        n["tiles"] += tiles.numel()
+        n["corner_tiles"] += int(tiles.sum())
+    return dict(corner_share=n["corners"] / n["pixels"], row_share=n["corner_rows"] / n["rows"],
+                tile_share=n["corner_tiles"] / n["tiles"])
 
 
 if __name__ == "__main__":

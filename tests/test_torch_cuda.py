@@ -7,7 +7,8 @@ chip_smoke.py: integer-valued images make the SAD kernels exact; the GNN
 layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4 and
 argmax agreement 0.999 (at iters 0, 1 and 20 and every cluster size); the
 detection kernel keeps the same finite mask, values to rtol 1e-5 and equal
-indices (it sums Harris in the plain version's order, so it is exact); the
+indices (it sums Harris in the plain version's order, so it is exact), one
+level a call or every level of a batch in one launch; the
 select kernel only compares, so it is bit-exact; the attention kernel's bf16
 output within 2^-7 of its largest entry, mean 1e-3, as
 tests/test_torch_attention.py holds the plain version to the reference.
@@ -17,9 +18,14 @@ import pytest
 import torch
 
 from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward, masked_attention, masked_attention_plain
-from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_plain
+from forest_slam_tpu_torch.frontend import detect_kernel
+from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_levels, detect_pooled_plain
 from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain, split_layer_params
-from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+from forest_slam_tpu_torch.frontend.refine_kernel import (
+    keypoints_per_block,
+    refine_cost_volume,
+    refine_cost_volume_plain,
+)
 from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
 from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import _launch, launch_plan, sinkhorn_decode, sinkhorn_decode_plain
@@ -59,6 +65,32 @@ def test_refine_cost_kernel(cuda):
     nvalid = torch.tensor([0, 77, 200], dtype=torch.int32, device=dev)
     args = (imgs[0].contiguous(), imgs[1].contiguous(), ri(140), ri(100), ri(140), ri(100), 8, 12, nvalid)
     torch.testing.assert_close(refine_cost_volume(*args), refine_cost_volume_plain(*args), rtol=0, atol=0)
+
+
+# (template, radius): the paths' (8, 12), a small and a large radius, an
+# odd n not a multiple of the kernel's 5-wide strips
+@pytest.mark.parametrize("t, R", [(8, 12), (8, 2), (4, 16), (6, 5)])
+def test_refine_cost_kernel_shapes(cuda, t, R):
+    """Every (t, R) above, nvalid 0, partial and full, B * K not a multiple of
+    the keypoints a block takes, and keypoints on the image border."""
+    dev, g = cuda
+    kp = keypoints_per_block(t, R)
+    H, W, K = 90, 130, 4 * kp + 6
+    B = next(b for b in (3, 5, 7) if (b * K) % kp)
+    imgs = torch.randint(0, 256, (2, B, H, W), generator=g, device=dev).float()
+    ri = lambda hi: torch.randint(0, hi, (B, K), generator=g, device=dev, dtype=torch.int32)
+    xi0, yi0, xi1, yi1 = ri(W), ri(H), ri(W), ri(H)
+    border = torch.tensor([[0, 0], [W - 1, H - 1], [0, H - 1], [W - 1, 0], [1, 2]], device=dev, dtype=torch.int32)
+    for x, y in ((xi0, yi0), (xi1, yi1)):
+        x[:, :5], y[:, :5] = border[:, 0], border[:, 1]
+        x[:, -5:], y[:, -5:] = border.flip(0)[:, 0], border.flip(0)[:, 1]
+    nvalid = torch.tensor([0, K // 2 + 1, K, 1, K - 1, 2, K][:B], dtype=torch.int32, device=dev)
+    args = (imgs[0].contiguous(), imgs[1].contiguous(), xi0, yi0, xi1, yi1, t, R, nvalid)
+    n = refine_cost_volume.launches
+    got = refine_cost_volume(*args)
+    assert refine_cost_volume.launches == n + 1
+    torch.testing.assert_close(got, refine_cost_volume_plain(*args), rtol=0, atol=0)
+    assert (got[0] == 0).all() and (got[1, K // 2 + 1:] == 0).all() and (got[2] > 0).any()
 
 
 def _sinkhorn_inputs(g, dev, B, K0, K1, dead_pair, eye=6.0):
@@ -188,6 +220,77 @@ def test_detect_kernel_pyramid_shapes(cuda):
         assert _check_detect(imgs) > 100
 
 
+def _check_levels(levels, **kw):
+    """All levels in one launch against the plain version level by level."""
+    n = detect_pooled.launches
+    got = detect_pooled_levels(levels, **kw)
+    assert detect_pooled.launches == n + 1
+    finite = 0
+    for lv, (vals, idx) in zip(levels, got):
+        ref_v, ref_i = detect_pooled_plain(lv, **kw)
+        fin = torch.isfinite(ref_v)
+        assert torch.equal(torch.isfinite(vals), fin)
+        torch.testing.assert_close(vals[fin], ref_v[fin], rtol=1e-5, atol=0)
+        assert torch.equal(idx, ref_i)
+        finite += int(fin.sum())
+    return finite
+
+
+def test_detect_levels_kernel_pyramid_shapes(cuda):
+    """The eight 960x600 pyramid levels of 8 frames in one launch."""
+    dev, g = cuda
+    sizes, _ = _level_geometry(600, 960, OrbConfig())
+    levels = [(torch.rand((8, h, w), generator=g, device=dev) * 255).contiguous() for h, w, _ in sizes]
+    assert _check_levels(levels) > 8 * 100
+
+
+@pytest.mark.parametrize("threshold", [20.0, 0.0])
+def test_detect_levels_kernel_exact_threshold(cuda, threshold):
+    """Integer images whose ring differences hit +-threshold exactly."""
+    dev, g = cuda
+    levels = [(torch.randint(0, 4, (2, 70, 90), generator=g, device=dev) * 20).float(),
+              torch.randint(0, 60, (2, 61, 77), generator=g, device=dev).float(),
+              (torch.randint(0, 12, (2, 45, 50), generator=g, device=dev) * 5).float()]
+    assert _check_levels(levels, threshold=threshold, margin=4) > 10
+
+
+def test_detect_levels_kernel_ragged_tiny_empty_ties(cuda):
+    dev, g = cuda
+    levels = [(torch.rand((3, h, w), generator=g, device=dev) * 255).contiguous()
+              for h, w in ((33, 41), (83, 157), (45, 70), (1, 1), (8, 9))]
+    assert _check_levels(levels) > 0  # reordered largest first inside the launch
+    flat = [torch.full((2, 61, 77), 9.0, device=dev), torch.full((2, 40, 33), 200.0, device=dev)]
+    assert _check_levels(flat) == 0
+    blocks = torch.randint(0, 256, (2, 12, 20), generator=g, device=dev).float()
+    blocky = blocks.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    assert _check_levels([blocky[:, :90, :150].contiguous(), blocky[:, :41, :67].contiguous()], margin=4) > 0
+
+
+def test_detect_levels_kernel_more_levels_than_a_launch_takes(cuda):
+    """Past MAX_LEVELS levels the wrapper makes one launch per MAX_LEVELS."""
+    dev, g = cuda
+    sizes = [(40 + 3 * i, 33 + 5 * i) for i in range(detect_kernel.MAX_LEVELS + 2)]
+    levels = [(torch.rand((2, h, w), generator=g, device=dev) * 255).contiguous() for h, w in sizes]
+    n = detect_pooled.launches
+    got = detect_pooled_levels(levels, margin=4)
+    assert detect_pooled.launches == n + 2
+    for lv, (vals, idx) in zip(levels, got):
+        ref_v, ref_i = detect_pooled_plain(lv, margin=4)
+        fin = torch.isfinite(ref_v)
+        assert torch.equal(torch.isfinite(vals), fin)
+        torch.testing.assert_close(vals[fin], ref_v[fin], rtol=1e-5, atol=0)
+        assert torch.equal(idx, ref_i)
+
+
+@pytest.mark.parametrize("block", [7, 5, 3, 1])
+def test_detect_levels_kernel_harris_blocks(cuda, block):
+    """Harris blocks 1-7 in one launch over ragged levels."""
+    dev, g = cuda
+    levels = [(torch.rand((2, h, w), generator=g, device=dev) * 255).contiguous()
+              for h, w in ((130, 200), (97, 140), (33, 41))]
+    assert _check_levels(levels, harris_block=block) > 0
+
+
 def test_detect_kernel_rejects_what_it_does_not_take(cuda):
     dev, _ = cuda
     imgs = torch.zeros((1, 40, 40), device=dev)
@@ -197,6 +300,8 @@ def test_detect_kernel_rejects_what_it_does_not_take(cuda):
         detect_pooled(imgs.double())
     with pytest.raises(ValueError, match="contiguous float32"):
         detect_pooled(torch.zeros((1, 40, 80), device=dev)[:, :, ::2])
+    with pytest.raises(ValueError, match="one batch"):
+        detect_pooled_levels([imgs, torch.zeros((2, 20, 20), device=dev)])
 
 
 def _peaky_heat(g, dev, B, H, W):
