@@ -12,7 +12,9 @@ Phases, each printing one line with its elapsed seconds:
 2. build: compiles the CUDA kernels from ``forest_slam_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, with its stated tolerance, its time, the plain version's
-   time and its bound (the detection kernel over all eight pyramid levels of
+   time and its bound (the sparse-cost kernel at the ORB path's 8 frames of
+   K=512 and the learned paths' 8 of K=1024 at 960x600 and the lowres gate's
+   24 of K=512 at 224x160; the detection kernel over all eight pyramid levels of
    a batch of 8 960x600 frames in one launch, and each level alone; the
    refine kernel at the learned paths' 8 pairs of K=1024 at 960x600 and the
    lowres gate's 23 pairs of K=512 at 224x160; the select kernel at a batch of
@@ -145,37 +147,53 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def sparse_case(dev, gen):
-    """The sparse-cost kernel against its plain version at the ORB and
-    learned paths' shape: (max error, ok, bound (ms, by), inputs)."""
+# the sparse-cost kernel's shapes (frames, H, W, K), D = 96, w = 7: the ORB
+# path's 512 features and the learned paths' 1024 keypoints in batches of 8
+# 960x600 frames, and the lowres gate's 24 frames of 512 at 224x160
+SPARSE_SHAPES = ((FRAME_BATCH, H, W, ORB_FEATURES), (FRAME_BATCH, H, W, K),
+                 (LOWRES_FRAMES, LOWRES_H, LOWRES_W, LOWRES_K))
+SPARSE_D, SPARSE_W = 96, 7
+
+
+def sparse_case(dev, gen, shape):
+    """The sparse-cost kernel against its plain version at (frames, H, W,
+    K): (max error, ok, bound (ms, by), inputs)."""
     from forest_slam_tpu_torch.stereo.sparse import prefilter
     from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
 
-    B, D, w = FRAME_BATCH, 96, 7
+    B, H_, W_, K_ = shape
+    D, w = SPARSE_D, SPARSE_W
     # integer-valued images: quarter-integer prefiltered values make every
     # SAD sum exact, so kernel and plain version must agree bit for bit
-    imgs = torch.randint(0, 256, (2, B, H, W), generator=gen, device=dev).float()
+    imgs = torch.randint(0, 256, (2, B, H_, W_), generator=gen, device=dev).float()
     pl, pr = prefilter(imgs[0], 31.0).contiguous(), prefilter(imgs[1], 31.0).contiguous()
-    xi = torch.randint(0, W, (B, K), generator=gen, device=dev, dtype=torch.int32)
-    yi = torch.randint(0, H, (B, K), generator=gen, device=dev, dtype=torch.int32)
+    xi = torch.randint(0, W_, (B, K_), generator=gen, device=dev, dtype=torch.int32)
+    yi = torch.randint(0, H_, (B, K_), generator=gen, device=dev, dtype=torch.int32)
     args = (pl, pr, xi, yi, D, w)
     err = (sparse_cost_rows(*args) - sparse_cost_rows_plain(*args)).abs().max().item()
     S = D + w - 1
-    nbytes = B * 4 * (min(H * W, K * w * w) + min(H * W, K * w * S) + 2 * K + K * D)
-    return err, err == 0.0, bound(nbytes, B * K * D * w * w * 3, F32_OPS), args
+    nbytes = B * 4 * (min(H_ * W_, K_ * w * w) + min(H_ * W_, K_ * w * S) + 2 * K_ + K_ * D)
+    return err, err == 0.0, bound(nbytes, B * K_ * D * w * w * 3, F32_OPS), args
 
 
 def check_sparse(dev, gen):
     from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
 
-    err, ok, (b_ms, b_by), args = sparse_case(dev, gen)
+    per_shape, ok = [], True
+    for shape in SPARSE_SHAPES:
+        err, o, (b_ms, b_by), args = sparse_case(dev, gen, shape)
+        ok &= o
+        per_shape.append(dict(shape=list(shape), max_abs_err=err, ok=o,
+                              ms=time_ms(lambda: sparse_cost_rows(*args)),
+                              plain_ms=time_ms(lambda: sparse_cost_rows_plain(*args)),
+                              bound_ms=b_ms, bound_by=b_by))
+    main = per_shape[1]  # the learned paths' 8 x 1024
     return dict(
         name="sparse_cost", source="forest_slam_tpu_torch/csrc/sparse_cost.cu",
         replaces="forest_slam_tpu/stereo/pallas_sparse.py:149", tolerance="exact (0)",
-        max_abs_err=err, ok=ok,
-        ms=time_ms(lambda: sparse_cost_rows(*args)),
-        plain_ms=time_ms(lambda: sparse_cost_rows_plain(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_abs_err=max(p["max_abs_err"] for p in per_shape), ok=ok,
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, per_shape=per_shape,
     )
 
 
@@ -448,8 +466,10 @@ def peaky_heat(dev, gen, shape):
     return torch.where(peaks > 0.99, peaks, heat).contiguous()
 
 
-# comparisons of the select kernel (csrc/select.cu) per pixel: the separable
-# (2r+1)^2 window maximum (2 * 2r), the three tests and the block reduction
+# comparisons per pixel of the select function: a separable (2r+1)^2 window
+# maximum done plainly (2 * 2r; csrc/select.cu shares partial maxima between
+# neighbouring windows and does fewer), the three tests and the block
+# reduction. The bytes bound it at every radius the paths use.
 def select_ops_per_pixel(radius):
     return 4 * radius + 4
 
@@ -680,6 +700,11 @@ def main() -> int:
         + "; ".join(f"{tuple(p['shape'])} max error {p['max_abs_err']:.3g}, {p['ms']:.4f} ms vs plain "
                     f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms by {p['bound_by']}"
                     for p in ref["per_shape"]))
+    spc = by_name["sparse_cost"]
+    log("  sparse_cost per shape (frames, H, W, K), D=96, w=7: "
+        + "; ".join(f"{tuple(p['shape'])} max error {p['max_abs_err']:.3g}, {p['ms']:.4f} ms vs plain "
+                    f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms by {p['bound_by']}"
+                    for p in spc["per_shape"]))
     sel = by_name["select"]
     log(f"  select: {sel['kept_blocks']} kept blocks, bit-exact at every shape; per shape (B, H, W): "
         + "; ".join(f"{tuple(p['shape'])} {p['ms']:.4f} ms vs plain {p['plain_ms']:.4f} ms, bound "

@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "device_setup.cuh"
 
 namespace {
@@ -66,15 +67,6 @@ struct Geometry {
   // they go through the window's buffer
   __host__ __device__ int floats() const { return t * t + S * Sp + (one_pass() ? 0 : n * n); }
 };
-
-// a 4-byte copy from global to shared memory that does not hold the thread;
-// zero-filled where !valid (src is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // the taps of template row ty, columns tx0 .. tx0 + lim - 1, into the
 // strips' sums; kFull: lim == kTC, with no guard

@@ -14,11 +14,13 @@ detection over the eight pyramid levels of a batch of 8 960x600 frames (one
 ``detect_pooled_levels`` call where the checkout has it, else eight
 ``detect_pooled`` calls), on random levels and on the levels of 8 rendered
 corridor frames; ``refine_cost_volume`` at 8 pairs of K=1024 at 960x600 and
-the lowres gate's 23 pairs of K=512; ``sparse_cost_rows`` at 8 frames of
-K=1024; ``nms_block_max`` at 8 960x600 heat maps. The case functions (inputs
-and the check against the plain versions) are ``chip_smoke.py``'s, loaded
-from this repository whatever ``DIR`` is, so both checkouts get the same
-inputs and the same tolerances.
+the lowres gate's 23 pairs of K=512; ``sparse_cost_rows`` (D=96, w=7) at
+the ORB path's 8 frames of K=512 and the learned paths' 8 of K=1024 at
+960x600 and the lowres gate's 24 of K=512 at 224x160; ``nms_block_max`` at 8
+960x600 heat maps and the lowres gate's three octaves of 24. The case
+functions (inputs and the check against the plain versions) are
+``chip_smoke.py``'s, loaded from this repository whatever ``DIR`` is, so
+both checkouts get the same inputs and the same tolerances.
 
 Two times per kernel and call: ``ms``, the median of 7 CUDA-event timings of
 20 calls back to back, after a warm-up (it holds the gaps between launches
@@ -160,11 +162,14 @@ def main() -> int:
                 _, ok, _, args = smoke.refine_case(dev, gen, shape)
                 timed(name, ok, lambda: refine_cost_volume(*args))
         if "sparse_cost" in kernels:
-            _, ok, _, args = smoke.sparse_case(dev, gen)
-            timed("sparse_cost", ok, lambda: sparse_cost_rows(*args))
+            for shape in smoke.SPARSE_SHAPES:
+                _, ok, _, args = smoke.sparse_case(dev, gen, shape)
+                B, H, W, K = shape
+                timed(f"sparse_cost {B}x{K} at {W}x{H}", ok, lambda: sparse_cost_rows(*args))
         if "select" in kernels:
-            ok, _, _, heat = smoke.select_case(dev, gen, smoke.select_shapes()[0])
-            timed("select", ok, lambda: nms_block_max(heat))
+            for shape in smoke.select_shapes():
+                ok, _, _, heat = smoke.select_case(dev, gen, shape)
+                timed("select {}x{}x{}".format(*shape), ok, lambda: nms_block_max(heat))
     ok = all(r["ok"] for r in out["kernels"].values())
     print(f"{out['label']} on {out['device']}; within tolerance: {ok}", flush=True)
     for name, r in out["kernels"].items():

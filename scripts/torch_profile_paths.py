@@ -12,8 +12,8 @@ warm-up run: once plain for the wall time, once with every phase
 synchronised and timed on the host clock (per-frame features and depth,
 per-pair matching and PnP, chaining), and, after both paths have run so,
 once under ``torch.profiler`` (device time by kernel name: the top 15 and
-the Sinkhorn, detection and refine kernels wherever they rank; and the
-device's busy and idle share of the run's wall time).
+the Sinkhorn, detection, refine, select and sparse-cost kernels wherever
+they rank; and the device's busy and idle share of the run's wall time).
 It prints a line per finding and, as its last line, one JSON object with
 the numbers; it fails without a CUDA card.
 """
@@ -66,7 +66,7 @@ def timed_phases(run):
 
 
 # kernels whose device time each path reports whatever their rank
-WATCHED = ("sinkhorn", "detect", "refine")
+WATCHED = ("sinkhorn", "detect", "refine", "select_kernel", "sparse_cost")
 
 
 def profiled(run, top: int = 15):

@@ -3,7 +3,8 @@
 Marked ``cuda``: each test decides in the ``cuda`` fixture whether a card is
 present and skips with a reason where there is none (the CPU run). On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
-chip_smoke.py: integer-valued images make the SAD kernels exact; the GNN
+chip_smoke.py: integer-valued images make the SAD kernels exact (the sparse
+cost on float frames within rtol 1e-6, atol 1e-4: summation order); the GNN
 layer's bf16 outputs may differ by roundings; Sinkhorn scores to 1e-4 and
 argmax agreement 0.999 (at iters 0, 1 and 20 and every cluster size); the
 detection kernel keeps the same finite mask, values to rtol 1e-5 and equal
@@ -26,10 +27,12 @@ from forest_slam_tpu_torch.frontend.refine_kernel import (
     refine_cost_volume,
     refine_cost_volume_plain,
 )
-from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
+from forest_slam_tpu_torch.frontend.select_kernel import BAND_ROWS, BLOCK, nms_block_max, nms_block_max_plain
+from forest_slam_tpu_torch.frontend.select_kernel import launch_plan as launch_select
 from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import _launch, launch_plan, sinkhorn_decode, sinkhorn_decode_plain
 from forest_slam_tpu_torch.stereo.sparse import prefilter
+from forest_slam_tpu_torch.stereo.sparse_kernel import launch_plan as launch_sparse
 from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
 
 pytestmark = pytest.mark.cuda
@@ -46,16 +49,63 @@ def cuda():
     return torch.device("cuda"), g
 
 
-def test_sparse_cost_kernel(cuda):
-    dev, g = cuda
-    imgs = torch.randint(0, 256, (2, 3, 120, 200), generator=g, device=dev).float()
+def _sparse_inputs(g, dev, B, H, W, K, integer=True):
+    """Prefiltered frames, integer-valued or not, and keypoints that run
+    past every edge, with the four corners and each border's midpoint."""
+    imgs = torch.randint(0, 256, (2, B, H, W), generator=g, device=dev).float()
+    if not integer:
+        imgs = imgs + torch.rand((2, B, H, W), generator=g, device=dev)
     pl, pr = prefilter(imgs[0], 31.0).contiguous(), prefilter(imgs[1], 31.0).contiguous()
-    xi = torch.randint(-5, 205, (3, 300), generator=g, device=dev, dtype=torch.int32)
-    yi = torch.randint(-5, 125, (3, 300), generator=g, device=dev, dtype=torch.int32)
+    xi = torch.randint(-5, W + 5, (B, K), generator=g, device=dev, dtype=torch.int32)
+    yi = torch.randint(-5, H + 5, (B, K), generator=g, device=dev, dtype=torch.int32)
+    edges = [(0, 0), (W - 1, 0), (0, H - 1), (W - 1, H - 1), (W // 2, 0), (W // 2, H - 1), (0, H // 2),
+             (W - 1, H // 2), (-3, H + 2), (W + 4, -1)]
+    for j, (x, y) in enumerate(edges[:K]):
+        xi[:, j], yi[:, j] = x, y
+    return pl, pr, xi, yi
+
+
+# (D, w): the paths' (96, 7), the old card test's (48, 7), the smallest, two
+# past the TPU kernel's limits (D + w - 1 > 128, w > 8) and an even window;
+# B = 1 and 24; K never a multiple of the keypoints a block takes
+@pytest.mark.parametrize("B", [1, 24])
+@pytest.mark.parametrize("D, w", [(96, 7), (48, 7), (1, 1), (128, 9), (160, 15), (96, 6)])
+def test_sparse_cost_kernel(cuda, D, w, B):
+    """Integer-valued images: every SAD sum is exact, so tolerance 0. Width
+    192 takes the kernel's 16-byte copies, 190 its 4-byte ones."""
+    dev, g = cuda
+    kp = launch_sparse(D, w)["keypoints_per_block"]
+    K = 3 * kp + 5
+    for W in (192, 190):
+        args = (*_sparse_inputs(g, dev, B, 60, W, K), D, w)
+        n = sparse_cost_rows.launches
+        got = sparse_cost_rows(*args)
+        assert sparse_cost_rows.launches == n + 1
+        ref = sparse_cost_rows_plain(*args)
+        assert (ref > 0).any()
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_sparse_cost_kernel_float_images(cuda):
+    """Non-integer frames at the paths' (96, 7): the kernel sums each
+    disparity's 49 taps in (dy, dx) order and the plain version in its
+    reduction's order, so float32 roundings may differ; sums reach about
+    1e4, hence rtol 1e-6 and atol 1e-4."""
+    dev, g = cuda
+    for W in (200, 201):
+        args = (*_sparse_inputs(g, dev, 3, 120, W, 301, integer=False), 96, 7)
+        torch.testing.assert_close(sparse_cost_rows(*args), sparse_cost_rows_plain(*args), rtol=1e-6, atol=1e-4)
+
+
+def test_sparse_cost_kernel_refuses(cuda):
+    dev, g = cuda
+    pl, pr, xi, yi = _sparse_inputs(g, dev, 1, 40, 60, 9)
     n = sparse_cost_rows.launches
-    got = sparse_cost_rows(pl, pr, xi, yi, 48, 7)
-    assert sparse_cost_rows.launches == n + 1
-    torch.testing.assert_close(got, sparse_cost_rows_plain(pl, pr, xi, yi, 48, 7), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="windows of 1..15"):
+        sparse_cost_rows(pl, pr, xi, yi, 96, 17)
+    with pytest.raises(ValueError, match="exceeds"):
+        sparse_cost_rows(pl, pr, xi, yi, 4000, 15)
+    assert sparse_cost_rows.launches == n
 
 
 def test_refine_cost_kernel(cuda):
@@ -337,6 +387,47 @@ def test_select_kernel_negative_heat_and_radius(cuda):
         nms_block_max(heat, nms_radius=9)
     with pytest.raises(ValueError, match="multiples of 4"):
         nms_block_max(heat[:, :46].contiguous())
+
+
+def _plant_select_cases(heat, r):
+    """Equal survivors inside a block and on both sides of a warp's edge
+    column, a peak suppressed across that edge, and pairs of peaks within r
+    of a band's top and bottom rows (one suppresses the other only if the
+    band's halo rows are read)."""
+    B, H, W = heat.shape
+    edge = BLOCK * launch_select(heat.shape, r)["lanes"]  # first column of the second warp
+    band = BAND_ROWS
+    for b in range(B):
+        if H >= 12 and W >= 16:
+            heat[b, 8, 8] = heat[b, 9, 10] = 0.7  # one block, equal
+        if H >= 12 and W >= edge + 8:
+            heat[b, 6, edge - 1] = heat[b, 6, edge] = 0.75  # two blocks across the edge, equal
+            heat[b, 10, edge - 2] = 0.6
+            heat[b, 10, edge - 2 + max(r, 1)] = 0.65
+        if H >= band + r + 2 and W >= 40:
+            heat[b, band - 1, 20] = 0.8
+            heat[b, band - 1 + max(r, 1), 21] = 0.85  # below the band's last row
+            heat[b, band + 1, 30] = 0.9
+            heat[b, band + 1 - max(r, 1), 29] = 0.88  # above the next band's first row
+    return heat.contiguous()
+
+
+# widths that are multiples of 4 but not of a warp's 112 or 120 columns,
+# heights of 4 and 8 and not a multiple of the 8-row band, B = 1 and 24
+@pytest.mark.parametrize("shape", [(1, 4, 4), (24, 8, 36), (1, 36, 124), (2, 52, 132), (24, 160, 224)])
+@pytest.mark.parametrize("r", range(9))
+def test_select_kernel_radii_and_shapes(cuda, r, shape):
+    dev, g = cuda
+    heat = _plant_select_cases(_peaky_heat(g, dev, *shape), r)
+    n = nms_block_max.launches
+    vals, idx = nms_block_max(heat, nms_radius=r)
+    assert nms_block_max.launches == n + 1
+    ref_v, ref_i = nms_block_max_plain(heat, nms_radius=r)
+    assert torch.equal(vals, ref_v) and torch.equal(idx, ref_i)
+    neg = (torch.rand(shape, generator=g, device=dev) - 0.5).contiguous()
+    got = nms_block_max(neg, nms_radius=r, threshold=-1.0, border=0)
+    ref = nms_block_max_plain(neg, nms_radius=r, threshold=-1.0, border=0)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 # (B, h, K, S): S below 16, one query, S not a multiple of the kernel's

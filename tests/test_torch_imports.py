@@ -90,7 +90,7 @@ def test_library_name_follows_sources_and_flags(monkeypatch, tmp_path):
     a = _build.library_path()
     assert a == _build.library_path()
     assert len(_build.sources()) == 7
-    assert [os.path.basename(p) for p in _build.headers()] == ["attention_core.cuh", "device_setup.cuh"]
+    assert [os.path.basename(p) for p in _build.headers()] == ["attention_core.cuh", "cp_async.cuh", "device_setup.cuh"]
     # an edit to a shared header names a new library
     header = tmp_path / "attention_core.cuh"
     header.write_bytes(open(_build.headers()[0], "rb").read() + b"// edited\n")

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from forest_slam_tpu.frontend.pallas_select import nms_pooled_batched
 from forest_slam_tpu.frontend.superpoint import SuperPointConfig as JConfig
 from forest_slam_tpu.frontend.superpoint import select_keypoints as jselect
-from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
+from forest_slam_tpu_torch.frontend.select_kernel import BAND_ROWS, launch_plan, nms_block_max, nms_block_max_plain
 from forest_slam_tpu_torch.frontend.superpoint import SuperPointConfig, block_path, select_keypoints
 
 
@@ -38,12 +38,12 @@ def _kp_set(xy, score, valid):
     return {(int(x), int(y), float(s)) for (x, y), s, v in zip(xy, score, valid) if v}
 
 
-def _compare(heat, coarse, K, backend):
+def _compare(heat, coarse, K, backend, nms_radius=4):
     jcfg = JConfig(max_keypoints=K, descriptor_dim=coarse.shape[-1], topk_method="exact",
-                   desc_sample_dtype=None, nms_backend=backend)
+                   desc_sample_dtype=None, nms_backend=backend, nms_radius=nms_radius)
     jf = jselect(jnp.asarray(heat), jnp.asarray(coarse), jcfg)
     tcfg = SuperPointConfig(max_keypoints=K, descriptor_dim=coarse.shape[-1], desc_sample_dtype=None,
-                            nms_backend="plain")
+                            nms_backend="plain", nms_radius=nms_radius)
     tf = select_keypoints(torch.as_tensor(heat), torch.as_tensor(coarse), tcfg)
     n_valid = 0
     for b in range(heat.shape[0]):
@@ -66,6 +66,34 @@ def test_select_matches_jax(shape, backend):
     rng = np.random.default_rng(sum(shape))
     heat = _peaky(rng, *shape)
     assert _compare(heat, _coarse(rng, *shape), 64, backend) >= 64 * shape[0] // 2
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 200), (1, 64, 136)])
+def test_block_max_at_radius_8_matches_xla_path(shape):
+    """The plain block pooling at the kernel's largest radius, on widths that
+    are not multiples of 128, against the JAX XLA path; K is the number of
+    blocks, so every kept block is compared."""
+    B, H, W = shape
+    rng = np.random.default_rng(11)
+    heat = _peaky(rng, *shape)
+    n_kept = int((nms_block_max_plain(torch.as_tensor(heat), 8)[0] > 0).sum())
+    assert n_kept > 10 * B
+    assert _compare(heat, _coarse(rng, *shape), (H // 4) * (W // 4), "xla", nms_radius=8) == n_kept
+
+
+def test_launch_plan_covers_the_image():
+    """The kernel's warps: each lane one float4 of a row, ceil(r/4) halo lanes
+    at each warp edge, just enough warps across a row and bands of
+    BAND_ROWS rows down it, no warp wholly outside the image."""
+    assert launch_plan((8, 600, 960), 4) == dict(halo_lanes=1, lanes=30, col_warps=8, bands=75, warps=4800)
+    for r in range(9):
+        for H in (4, 8, 16, 20, 160, 600):
+            for W in (4, 36, 112, 120, 124, 132, 224, 960):
+                p = launch_plan((3, H, W), r)
+                assert p["halo_lanes"] == -(-r // 4) and p["lanes"] == 32 - 2 * p["halo_lanes"]
+                assert (p["col_warps"] - 1) * p["lanes"] < W // 4 <= p["col_warps"] * p["lanes"]
+                assert (p["bands"] - 1) * BAND_ROWS < H <= p["bands"] * BAND_ROWS
+                assert p["warps"] == 3 * p["bands"] * p["col_warps"]
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 128), (2, 96, 256)])
