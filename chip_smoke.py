@@ -40,10 +40,31 @@ Phases, each printing one line with its elapsed seconds:
    run with every GNN layer op by op around the attention kernel, which
    must launch while the fused layer kernel does not; then the plain
    versions;
-7. lowres gate (``bench.py:626-682``): 24 corridor frames at 224x160,
-   extracted at octaves (1.0, 1.7, 2.89), K=512, 512 hypotheses, refine
-   radius 12, frame and pair batches of 24, held to 21/23 tracked and ATE
-   below 0.05 m.
+7. lowres gate (``bench.py:626-682``, run through
+   ``forest_slam_tpu_torch.bench.lowres_setup``): 24 corridor frames at
+   224x160, extracted at octaves (1.0, 1.7, 2.89), K=512, 512 hypotheses,
+   refine radius 12, frame and pair batches of 24, held to 21/23 tracked and
+   ATE below 0.05 m;
+8. the 962-pair workload of ``bench.py`` through
+   ``forest_slam_tpu_torch.bench``: 64 unique 960x600 frames ping-ponged to
+   963, frame and pair batches of 32 and 48; the learned front end (a
+   fall-back to ORB fails the run) with a warm-up and three timed runs
+   (three more when they spread by over 10%), then ORB with a warm-up and
+   one timed run; each held to 90% of its pairs tracked and ATE below
+   0.25 m, with pairs/s, ATE and RPE printed;
+9. the gate suite of ``bench.py`` (``forest_slam_tpu_torch.bench.run_gates``):
+   each vo gate's clip rendered on the card, worst of seeds 0 and 1; the
+   gates that pass in the JAX package's record (``BENCH_r05.json``) are held
+   to ``bench.py``'s bounds, ``blur_wb_k10`` and ``plain_k20`` (which fail
+   there too) are printed only; the plain gates print that they did not run
+   where their checkpoint is absent.
+
+The kernel checks also run the shapes the workload and the gates give the
+kernels: the sparse cost at 32 frames of K=1024 and of 512, the GNN layer at
+96 sequences, Sinkhorn at 48, 15 and 7 pairs, refine at 48 pairs and at
+radius 24 with frame 0 upscaled by 1.0, 1.2, 1.44 and 1.7 against frame 1
+at 960x600, select at 32 960x600 frames and at the wide-baseline octaves
+(416x672 and 288x480) of 16 frames, detect over the levels of 32 frames.
 
 Each path starts with every launch count at 0 and reads them when it ends.
 
@@ -89,6 +110,15 @@ LOWRES_K = 512
 LOWRES_MAX_ATE_M = 0.05
 LOWRES_REFERENCE = "23/23 tracked at ATE 0.0221 m"
 HEADS, HEAD_DIM = 4, 64
+# forest_slam_tpu_torch/bench.py's batches (FRAME_CHUNK, PAIR_CHUNK) and its
+# gates' clips: 16 frames at K=10 (15 pairs), 8 at K=20 (7 pairs), 24 for
+# blur50, all in one batch; the wide-baseline octaves and refine scales
+BENCH_FRAMES, BENCH_PAIRS = 32, 48
+GATE_PAIRS = (15, 7)
+WB_OCTAVES = (0.707, 0.5)
+WB_REFINE_SCALES = (1.0, 1.2, 1.44, 1.7)
+WB_RADIUS = 24
+BENCH_MAX_ATE_M = 0.25
 
 
 def log(msg: str) -> None:
@@ -149,9 +179,11 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 # the sparse-cost kernel's shapes (frames, H, W, K), D = 96, w = 7: the ORB
 # path's 512 features and the learned paths' 1024 keypoints in batches of 8
-# 960x600 frames, and the lowres gate's 24 frames of 512 at 224x160
+# 960x600 frames, the lowres gate's 24 frames of 512 at 224x160, and the
+# 962-pair workload's batches of 32 frames (learned, then ORB)
 SPARSE_SHAPES = ((FRAME_BATCH, H, W, ORB_FEATURES), (FRAME_BATCH, H, W, K),
-                 (LOWRES_FRAMES, LOWRES_H, LOWRES_W, LOWRES_K))
+                 (LOWRES_FRAMES, LOWRES_H, LOWRES_W, LOWRES_K), (BENCH_FRAMES, H, W, K),
+                 (BENCH_FRAMES, H, W, ORB_FEATURES))
 SPARSE_D, SPARSE_W = 96, 7
 
 
@@ -198,9 +230,11 @@ def check_sparse(dev, gen):
 
 
 # the fused layer's other shapes: the lowres gate's (48 sequences of
-# K = S = 512, 18 launches there) and a ragged K != S with one sequence whose
-# sources are all masked; (N, K, S, all_masked)
-GNN_EXTRA_SHAPES = ((2 * LOWRES_FRAMES, LOWRES_K, LOWRES_K, False), (4, 150, 130, True))
+# K = S = 512, 18 launches there), a ragged K != S with one sequence whose
+# sources are all masked, the 962-pair workload's 48 pairs and a K=10 gate's
+# 15; (N, K, S, all_masked)
+GNN_EXTRA_SHAPES = ((2 * LOWRES_FRAMES, LOWRES_K, LOWRES_K, False), (4, 150, 130, True),
+                    (2 * BENCH_PAIRS, K, K, False), (2 * GATE_PAIRS[0], K, K, False))
 ATTENTION_RAGGED = (3, HEADS, 150, 130)  # (B, h, K, S), the last sequence fully masked
 
 
@@ -226,6 +260,15 @@ def gnn_case(dev, gen, ws, heads, N, K_, S, all_masked):
     return err, mean_err, scale, ok, (x, src, mask)
 
 
+def gnn_bound(ws, N, K_, S, D=256):
+    """The layer's least time: q and the merge over K tokens, k and v over S,
+    both attention products, the two-layer MLP over [x, message]; each input
+    and the weights read once, the output written once."""
+    ops = 2 * N * D * D * (2 * K_ + 2 * S) + 4 * N * K_ * S * D + 2 * N * K_ * (2 * D) * (2 * D) + 2 * N * K_ * 2 * D * D
+    nbytes = 2 * (2 * N * K_ * D + N * S * D) + N * S + sum(t.numel() * t.element_size() for t in ws)
+    return bound(nbytes, ops, BF16_OPS)
+
+
 def check_gnn(dev, gen, fe):
     from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
 
@@ -235,13 +278,12 @@ def check_gnn(dev, gen, fe):
     err, mean_err, _, ok, (x, src, mask) = gnn_case(dev, gen, ws, heads, N, K, K, False)
     extra = []
     for n_, k_, s_, masked in GNN_EXTRA_SHAPES:
-        e, me, top, o, _ = gnn_case(dev, gen, ws, heads, n_, k_, s_, masked)
+        e, me, top, o, (xe, se, me_) = gnn_case(dev, gen, ws, heads, n_, k_, s_, masked)
         extra.append(dict(shape=[n_, k_, s_, D], all_masked_sequence=masked, max_abs_err=e, mean_abs_err=me,
-                          max_abs_ref=top, ok=o))
+                          max_abs_ref=top, ok=o, ms=time_ms(lambda: gnn_layer(xe, se, me_, ws, heads)),
+                          bound_ms=gnn_bound(ws, n_, k_, s_)[0]))
         ok &= o
-    ops = 2 * N * K * D * D * 4 + 2 * 2 * N * K * K * D + 2 * N * K * (2 * D) * (2 * D) + 2 * N * K * 2 * D * D
-    nbytes = 2 * (3 * N * K * D) + N * K + sum(t.numel() * t.element_size() for t in ws)
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+    b_ms, b_by = gnn_bound(ws, N, K, K)
     return dict(
         name="gnn_layer", source="forest_slam_tpu_torch/csrc/gnn_layer.cu",
         replaces="forest_slam_tpu/frontend/pallas_gnn.py:214",
@@ -256,7 +298,10 @@ def check_gnn(dev, gen, fe):
 # the Sinkhorn kernel's shapes (B, K0, K1, one pair all invalid): the
 # learned paths' pair batch, the lowres gate's 23 pairs of K = 512, and a
 # ragged K0 != K1, not a multiple of 4, with a pair whose valid0 is all False
-SINKHORN_SHAPES = ((PAIR_BATCH, K, K, False), (LOWRES_FRAMES - 1, LOWRES_K, LOWRES_K, False), (3, 200, 170, True))
+# and the 962-pair workload's 48 pairs and the gates' 15 and 7 (cluster plans
+# at new batch sizes)
+SINKHORN_SHAPES = ((PAIR_BATCH, K, K, False), (LOWRES_FRAMES - 1, LOWRES_K, LOWRES_K, False), (3, 200, 170, True),
+                   (BENCH_PAIRS, K, K, False), (GATE_PAIRS[0], K, K, False), (GATE_PAIRS[1], K, K, False))
 
 
 def sinkhorn_case(dev, gen, shape, alpha, iters):
@@ -316,33 +361,39 @@ def check_sinkhorn(dev, gen, fe):
     )
 
 
-# the refine kernel's shapes (pairs, H, W, K): the learned paths' pair batch
-# at 960x600 and the lowres gate's 23 pairs at 224x160
-REFINE_SHAPES = ((PAIR_BATCH, H, W, K), (LOWRES_FRAMES - 1, LOWRES_H, LOWRES_W, LOWRES_K))
-REFINE_TEMPLATE, REFINE_RADIUS = 8, 12
+# the refine kernel's shapes (pairs, H0, W0, H1, W1, K, R), template 8: the
+# learned paths' pair batch at 960x600, the lowres gate's 23 pairs at
+# 224x160 and the 962-pair workload's 48 pairs at radius 12; the
+# wide-baseline gates' 15 pairs at radius 24 with frame 0 upscaled by each
+# refine scale against frame 1 at 960x600
+REFINE_SHAPES = ((PAIR_BATCH, H, W, H, W, K, 12), (LOWRES_FRAMES - 1, LOWRES_H, LOWRES_W, LOWRES_H, LOWRES_W,
+                                                   LOWRES_K, 12), (BENCH_PAIRS, H, W, H, W, K, 12)) + tuple(
+    (GATE_PAIRS[0], int(round(H * s)), int(round(W * s)), H, W, K, WB_RADIUS) for s in WB_REFINE_SCALES)
+REFINE_TEMPLATE = 8
 
 
 def refine_case(dev, gen, shape):
-    """The refine kernel against its plain version at (pairs, H, W, K), with
-    template 8 and radius 12 and from a quarter to all keypoints valid a
-    pair: (max error, ok, bound (ms, by), inputs)."""
+    """The refine kernel against its plain version at (pairs, H0, W0, H1, W1,
+    K, R), with template 8 and from a quarter to all keypoints valid a pair,
+    frame-0 keypoints at the frame-1 keypoints' place scaled to frame 0:
+    (max error, ok, bound (ms, by), inputs)."""
     from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
 
-    B, H_, W_, K_ = shape
-    t, R = REFINE_TEMPLATE, REFINE_RADIUS
+    B, H0, W0, H1, W1, K_, R = shape
+    t = REFINE_TEMPLATE
     n, S = 2 * R + 1, 2 * R + t
     # integer-valued images: every SAD sum is exact, so agreement is bit for bit
-    imgs = torch.randint(0, 256, (2, B, H_, W_), generator=gen, device=dev).float()
-    img0, img1 = imgs[0].contiguous(), imgs[1].contiguous()
+    img0 = torch.randint(0, 256, (B, H0, W0), generator=gen, device=dev).float()
+    img1 = torch.randint(0, 256, (B, H1, W1), generator=gen, device=dev).float()
     ri = lambda lo, hi: torch.randint(lo, hi, (B, K_), generator=gen, device=dev, dtype=torch.int32)
-    xi0, yi0 = ri(0, W_), ri(0, H_)
-    xi1 = (xi0 + ri(-20, 21)).clamp(0, W_ - 1).contiguous()
-    yi1 = (yi0 + ri(-20, 21)).clamp(0, H_ - 1).contiguous()
+    xi1, yi1 = ri(0, W1), ri(0, H1)
+    xi0 = (xi1.float() * W0 / W1 + ri(-20, 21)).round().clamp(0, W0 - 1).int().contiguous()
+    yi0 = (yi1.float() * H0 / H1 + ri(-20, 21)).round().clamp(0, H0 - 1).int().contiguous()
     nvalid = torch.randint(K_ // 4, K_ + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
     args = (img0, img1, xi0, yi0, xi1, yi1, t, R, nvalid)
     err = (refine_cost_volume(*args) - refine_cost_volume_plain(*args)).abs().max().item()
     nv = int(nvalid.sum().item())
-    nbytes = 4 * (sum(min(H_ * W_, int(v) * t * t) + min(H_ * W_, int(v) * S * S) for v in nvalid.tolist())
+    nbytes = 4 * (sum(min(H0 * W0, int(v) * t * t) + min(H1 * W1, int(v) * S * S) for v in nvalid.tolist())
                   + 4 * B * K_ + B + B * K_ * n * n)
     return err, err == 0.0, bound(nbytes, nv * n * n * t * t * 3, F32_OPS), args
 
@@ -407,14 +458,14 @@ def detect_ops(img, threshold, margin):
             + DETECT_OPS_PER_CORNER * int(corners.sum()))
 
 
-def detect_case(dev, gen):
-    """Random 0-255 levels at the eight pyramid shapes of a batch of 8
-    960x600 frames: (levels, (threshold, harris_block, margin))."""
+def detect_case(dev, gen, batch=FRAME_BATCH):
+    """Random 0-255 levels at the eight pyramid shapes of a batch of
+    ``batch`` 960x600 frames: (levels, (threshold, harris_block, margin))."""
     from forest_slam_tpu_torch.frontend.orb import OrbConfig, _level_geometry
 
     cfg = OrbConfig(n_features=ORB_FEATURES, n_levels=ORB_LEVELS)
     sizes, _ = _level_geometry(H, W, cfg)
-    levels = [(torch.rand((FRAME_BATCH, h, w), generator=gen, device=dev) * 255.0).contiguous() for h, w, _ in sizes]
+    levels = [(torch.rand((batch, h, w), generator=gen, device=dev) * 255.0).contiguous() for h, w, _ in sizes]
     return levels, (cfg.fast_threshold, cfg.harris_block, cfg.edge_margin)
 
 
@@ -441,9 +492,19 @@ def check_detect(dev, gen):
     levels, args = detect_case(dev, gen)
     plain = lambda: [detect_pooled_plain(lv, *args) for lv in levels]
     err, mask_eq, idx_eq, close, n_finite = detect_agreement(detect_pooled_levels(levels, *args), plain())
-    nbytes = sum(4 * lv.numel() + 8 * lv.shape[0] * n_cells(*lv.shape[1:])[0] * n_cells(*lv.shape[1:])[1]
-                 for lv in levels)
-    b_ms, b_by = bound(nbytes, sum(detect_ops(lv, args[0], args[2]) for lv in levels), F32_OPS)
+    # the 962-pair ORB run's batches of 32 frames, all levels in one launch
+    big, _ = detect_case(dev, gen, BENCH_FRAMES)
+    b_err, b_mask, b_idx, b_close, b_fin = detect_agreement(detect_pooled_levels(big, *args),
+                                                           [detect_pooled_plain(lv, *args) for lv in big])
+    err, mask_eq, idx_eq, close, n_finite = (max(err, b_err), mask_eq and b_mask, idx_eq and b_idx,
+                                             close and b_close, n_finite + b_fin)
+
+    def detect_bound(lvs):
+        nbytes = sum(4 * lv.numel() + 8 * lv.shape[0] * n_cells(*lv.shape[1:])[0] * n_cells(*lv.shape[1:])[1]
+                     for lv in lvs)
+        return bound(nbytes, sum(detect_ops(lv, args[0], args[2]) for lv in lvs), F32_OPS)
+
+    b_ms, b_by = detect_bound(levels)
     return dict(
         name="detect", source="forest_slam_tpu_torch/csrc/detect.cu",
         replaces="forest_slam_tpu/frontend/pallas_detect.py:277",
@@ -456,6 +517,7 @@ def check_detect(dev, gen):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         # each level alone, one launch of detect_pooled each
         level_ms=[time_ms(lambda: detect_pooled(lv, *args)) for lv in levels],
+        bench_batch_ms=time_ms(lambda: detect_pooled_levels(big, *args)), bench_batch_bound_ms=detect_bound(big)[0],
     )
 
 
@@ -474,13 +536,15 @@ def select_ops_per_pixel(radius):
     return 4 * radius + 4
 
 
-# the select kernel's shapes: a batch of 8 960x600 heat maps and the lowres
-# gate's three octaves of 24 frames
+# the select kernel's shapes: a batch of 8 960x600 heat maps, the lowres
+# gate's three octaves of 24 frames, the 962-pair workload's 32 frames and
+# the wide-baseline octaves of a K=10 gate's 16 frames
 def select_shapes():
     from forest_slam_tpu_torch.frontend.learned import octave_shape
 
     s8 = 32  # the flagship's stem 4 x 8
-    return [(FRAME_BATCH, H, W)] + [(LOWRES_FRAMES, *octave_shape(LOWRES_H, LOWRES_W, s, s8)) for s in LOWRES_SCALES]
+    return ([(FRAME_BATCH, H, W)] + [(LOWRES_FRAMES, *octave_shape(LOWRES_H, LOWRES_W, s, s8)) for s in LOWRES_SCALES]
+            + [(BENCH_FRAMES, H, W)] + [(GATE_PAIRS[0] + 1, *octave_shape(H, W, s, s8)) for s in WB_OCTAVES])
 
 
 def select_case(dev, gen, shape):
@@ -692,11 +756,12 @@ def main() -> int:
                 + (f"; scaled_dot_product_attention {r['library_ms']:.4f} ms" if r["library_ms"] is not None else ""))
     by_name = {r["name"]: r for r in results}
     det = by_name["detect"]
-    log(f"  detect over the eight levels (B={FRAME_BATCH}) in one launch: mask equal {det['mask_equal']}, "
-        f"indices equal {det['indices_equal']}, {det['finite_cells']} finite cells; one level a launch, ms "
-        f"{[round(t, 4) for t in det['level_ms']]}")
+    log(f"  detect over the eight levels (B={FRAME_BATCH} and {BENCH_FRAMES}) in one launch: mask equal "
+        f"{det['mask_equal']}, indices equal {det['indices_equal']}, {det['finite_cells']} finite cells; one level a "
+        f"launch, ms {[round(t, 4) for t in det['level_ms']]}; B={BENCH_FRAMES} {det['bench_batch_ms']:.4f} ms, bound "
+        f"{det['bench_batch_bound_ms']:.4f} ms")
     ref = by_name["refine_cost"]
-    log("  refine_cost per shape (pairs, H, W, K): "
+    log("  refine_cost per shape (pairs, H0, W0, H1, W1, K, R): "
         + "; ".join(f"{tuple(p['shape'])} max error {p['max_abs_err']:.3g}, {p['ms']:.4f} ms vs plain "
                     f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms by {p['bound_by']}"
                     for p in ref["per_shape"]))
@@ -731,7 +796,7 @@ def main() -> int:
     for o in gnn["other_shapes"]:
         log(f"  gnn_layer at (N, K, S, D) = {tuple(o['shape'])}{', one sequence fully masked' if o['all_masked_sequence'] else ''}: "
             f"max error {o['max_abs_err']:.6g} of {o['max_abs_ref']:.4g}, mean {o['mean_abs_err']:.3g}: "
-            f"{'PASS' if o['ok'] else 'FAIL'}")
+            f"{'PASS' if o['ok'] else 'FAIL'}; {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms")
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         print(f"FAIL: kernels disagree with their plain versions: {bad}", file=sys.stderr)
@@ -838,26 +903,69 @@ def main() -> int:
     del plain_fe
 
     # lowres gate: bench.py:626-682 at its default flags
-    gl, gr, gt_g, rig_g = render_frames(dev, LOWRES_H, LOWRES_W, LOWRES_FRAMES)
-    fe_g = load_learned_frontend(FLAGSHIP_PATH, (LOWRES_H, LOWRES_W), LOWRES_K, device=dev, scales=LOWRES_SCALES)
-    cfg_g = StereoConfig(n_hypotheses=LOWRES_K, compose_mode="odometry", match_refine_radius=12)
+    from forest_slam_tpu_torch import bench
 
-    def run_lowres():
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
-        return run_stereo_vo_device(gl, gr, rig_g, cfg_g, g, learned_frontend(fe_g), frame_batch=LOWRES_FRAMES,
-                                    pair_batch=LOWRES_FRAMES)
-
+    run_lowres, gt_g, scales = bench.lowres_setup(dev)
     _, _, t_cold = drive_path(wrappers, run_lowres)
     log(f"lowres gate warm-up run: {t_cold:.2f} s")
     out, launches, t_run = drive_path(wrappers, run_lowres)
     launches_by_path["lowres"] = launches
     tracked, err = report("lowres gate", out, t_run, launches, truth=gt_g, shares=False)
-    log(f"  lowres gate at {LOWRES_W}x{LOWRES_H}, octaves {LOWRES_SCALES}: {tracked}/{LOWRES_FRAMES - 1} tracked, "
+    log(f"  lowres gate at {LOWRES_W}x{LOWRES_H}, octaves {scales}: {tracked}/{LOWRES_FRAMES - 1} tracked, "
         f"ATE {err:.4f} m; the reference's record: {LOWRES_REFERENCE}")
     failures += path_failures("lowres gate", out, tracked, err, launches,
                               ("select", "gnn_layer", "sparse_cost", "sinkhorn_decode", "refine_cost"),
                               n_pairs=LOWRES_FRAMES - 1, max_ate=LOWRES_MAX_ATE_M)
+    del plain_out, out
+    torch.cuda.empty_cache()
+
+    # bench.py's 962-pair workload, learned then ORB
+    records = {}
+    for kind, n_timed, path_kernels in (("sp", 3, ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode",
+                                                   "refine_cost")),
+                                        ("orb", 1, ("detect", "sparse_cost"))):
+        wl = bench.prepare_workload(kind, dev, fe=fe if kind == "sp" else None)
+        name = f"bench_{'learned' if kind == 'sp' else 'orb'}"
+        if kind == "sp" and wl.frontend != "superpoint_superglue":
+            failures.append(f"{name}: the learned front end fell back to ORB ({wl.sanity_matches} matches on "
+                            "adjacent frames)")
+        _, _, t_cold = drive_path(wrappers, wl.run)
+        log(f"{name}: {wl.truth.shape[0] - 1} pairs at {W}x{H} ({bench.N_UNIQUE} unique frames ping-ponged), "
+            f"frontend {wl.frontend}; warm-up run {t_cold:.2f} s")
+        (times, out), launches, _ = drive_path(wrappers, lambda: bench.timed_runs(wl.run, n_timed))
+        launches_by_path[name] = launches
+        rec = bench.workload_record(out, wl.truth, times, wl.frontend)
+        records[name] = rec
+        log(f"{name}: {rec['value']} pairs/s (median of {len(times)} runs {rec['runs_s']} s, spread "
+            f"{rec['run_spread']}), {rec['ok_frames']}/{rec['n_frames']} pairs tracked, ATE {rec['ate_rmse']} m, "
+            f"RPE {rec['rpe']['rmse_pct']} % over {rec['rpe']['delta_m']} m ({rec['rpe']['n']} pairs), on "
+            f"{torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
+        failures += path_failures(name, out, rec["ok_frames"], rec["ate_rmse"], launches, path_kernels,
+                                  n_pairs=rec["n_frames"], max_ate=BENCH_MAX_ATE_M)
+        del wl, out
+        torch.cuda.empty_cache()
+    print(json.dumps({"bench": records}), flush=True)
+
+    # the gate suite: bench.py's vo gates, worst of seeds 0 and 1
+    t0 = time.time()
+    (gates, gate_failures, not_run), launches, _ = drive_path(
+        wrappers, lambda: bench.run_gates(dev, fe=fe, lowres=False))
+    launches_by_path["gates"] = launches
+    log(f"gate suite in {time.time() - t0:.1f} s on {torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
+    for gate in bench.GATES:
+        if gate.tag in not_run:
+            print(f"gate {gate.tag}: not run: checkpoint not on the card", flush=True)
+            continue
+        print(f"gate {gate.tag}: {gates[gate.tag + '_ok']}/{gates[gate.tag + '_n']} tracked, ATE "
+              f"{gates[gate.tag + '_ate']} m (worst of seeds {list(bench.GATE_SEEDS)}: {gates[gate.tag + '_seeds']}); "
+              f"bounds >= {gate.min_ok}, <= {gate.max_ate} m; {'held' if gate.held else 'printed, not held'}",
+              flush=True)
+    held = {g.tag for g in bench.GATES if g.held}
+    failures += [f"gate {f}" for f in gate_failures if f.split(":")[0] in held]
+    zero = [k for k in ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost") if launches[k] == 0]
+    if zero:
+        failures.append(f"gates: kernels never launched: {zero}")
+    print(json.dumps({"gates": gates, "gate_failures": gate_failures or None, "not_run": not_run}), flush=True)
 
     if failures:
         print("FAIL: " + "; ".join(failures), file=sys.stderr)
@@ -869,7 +977,7 @@ def main() -> int:
         kernels.append({k: r[k] for k in ("name", "source", "replaces")}
                        | {"route": "cuda", "launches": sum(by_path.values()), "launches_by_path": by_path}
                        | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    log("done")
+    log(f"done: {time.time() - T_START:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

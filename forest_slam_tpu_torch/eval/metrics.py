@@ -1,4 +1,4 @@
-"""Absolute trajectory error (port of eval/metrics.py's APE and
+"""Trajectory errors (port of eval/metrics.py's APE and RPE and of
 eval/association.py)."""
 
 from __future__ import annotations
@@ -60,3 +60,32 @@ def ape_translation(est: Trajectory, ref: Trajectory, align: bool = True, with_s
     if align and len(est_m) >= 3:
         est_m = align_trajectory(est_m, ref_m, with_scale=with_scale)
     return ErrorStats.from_errors(np.linalg.norm(est_m.positions - ref_m.positions, axis=1))
+
+
+def rpe_distance_ratio(est: Trajectory, ref: Trajectory, delta_m: float = 20.0, max_diff: float = 0.01) -> ErrorStats:
+    """Relative error as a point-distance error ratio (%) over path-length
+    deltas (evo's ``filter_pairs_by_path``, consecutive pairs): after Sim(3)
+    alignment, an id is marked each time the estimate's accumulated path
+    reaches ``delta_m`` (index 0 is not one), consecutive ids pair up, and a
+    pair's error is | |est_j - est_i| - |ref_j - ref_i| | / |ref_j - ref_i|
+    x 100."""
+    est_m, ref_m = associate(est, ref, max_diff=max_diff)
+    n = len(est_m)
+    if n < 2:
+        return ErrorStats.from_errors(np.zeros(0))
+    if n >= 3:
+        est_m = align_trajectory(est_m, ref_m, with_scale=True)
+    seg = np.linalg.norm(np.diff(est_m.positions, axis=0), axis=1)
+    ids, acc = [], 0.0
+    for i in range(1, n):
+        acc += seg[i - 1]
+        if acc >= delta_m:
+            ids.append(i)
+            acc = 0.0
+    errors = []
+    for i, j in zip(ids[:-1], ids[1:]):
+        d_ref = np.linalg.norm(ref_m.positions[j] - ref_m.positions[i])
+        d_est = np.linalg.norm(est_m.positions[j] - est_m.positions[i])
+        if d_ref > 1e-9:
+            errors.append(abs(d_est - d_ref) / d_ref * 100.0)
+    return ErrorStats.from_errors(np.asarray(errors))

@@ -1,10 +1,12 @@
 """Post-match keypoint refinement by local template search (port of
-frontend/refine.py at scale 1.0).
+frontend/refine.py).
 
 An 8x8 template around each frame-0 keypoint is matched by SAD against a
 (2R+1)^2 neighbourhood of the frame-1 estimate, with a uniqueness gate and a
-parabola sub-pixel step per axis. Batched over pairs: images (B, H, W),
-keypoints (B, K, 2).
+parabola sub-pixel step per axis. With several ``scales``, each s != 1 runs
+the search again with frame 0 upscaled by s (frame 1 stays at its own size),
+and each keypoint takes the scale of lowest best/second cost ratio. Batched
+over pairs: images (B, H, W), keypoints (B, K, 2).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from forest_slam_tpu_torch.frontend.refine_kernel import (
     refine_cost_volume,
     refine_cost_volume_plain,
 )
+from forest_slam_tpu_torch.utils.filters import resize_bilinear
 
 
 class RefineConfig(NamedTuple):
@@ -26,6 +29,10 @@ class RefineConfig(NamedTuple):
     # "auto": the CUDA kernel for CUDA tensors (its plain version on CPU);
     # "plain": the plain version on any device.
     cost_path: str = "auto"
+    # template-to-window scale ratios searched: forward motion enlarges
+    # approaching patches, so each s != 1 matches frame 0 upscaled by s
+    # against frame 1 at its own resolution (refine.py:53)
+    scales: tuple = (1.0,)
 
 
 def _subpix(b, axis_cost, n: int):
@@ -103,15 +110,34 @@ def refine_matches_quality(img0, img1, xy0, xy1, valid, cfg: RefineConfig = Refi
 
     Valid keypoints are compacted to the front before the search so the
     kernel's work is bounded by the live count ``nvalid``; results are
-    un-permuted on return. Points that fail the gate keep their input
-    coordinate with ok=False; quality is 1 - best/second in [0, 1].
+    un-permuted on return. Points that fail the gate (at every scale) keep
+    their input coordinate with ok=False; quality is 1 - best/second of the
+    winning scale in [0, 1].
     """
     order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
     inv = torch.argsort(order, dim=-1, stable=True)
     take = lambda a: a.gather(1, order[..., None].expand_as(a)) if a.dim() == 3 else a.gather(1, order)
     xy0, xy1, valid = take(xy0), take(xy1), take(valid)
     nvalid = valid.sum(dim=1)
-    refined, ok, ratio = _refine_single(img0, img1, xy0, xy1, valid, cfg, nvalid)
+    H, W = img0.shape[-2:]
+    best = None
+    for s in cfg.scales:
+        if s == 1.0:
+            cand = _refine_single(img0, img1, xy0, xy1, valid, cfg, nvalid)
+        else:
+            H0s, W0s = int(round(H * s)), int(round(W * s))
+            img0s = resize_bilinear(img0, H0s, W0s)
+            sc0 = torch.tensor([W0s / W, H0s / H], dtype=torch.float32, device=xy0.device)
+            cand = _refine_single(img0s, img1, xy0 * sc0, xy1, valid, cfg, nvalid)
+        if best is None:
+            best = cand
+            continue
+        # the first scale of lowest ratio wins (argmin over the scales)
+        score = lambda c: torch.where(c[1], c[2], torch.full_like(c[2], 3.0))
+        pick = score(cand) < score(best)
+        best = (torch.where(pick[..., None], cand[0], best[0]), torch.where(pick, cand[1], best[1]),
+                torch.where(pick, cand[2], best[2]))
+    refined, ok, ratio = best
     out = torch.where(ok[..., None], refined, xy1)
     quality = torch.where(ok, torch.clamp(1.0 - ratio, 0.0, 1.0), torch.zeros_like(ratio))
     back = lambda a: a.gather(1, inv[..., None].expand_as(a)) if a.dim() == 3 else a.gather(1, inv)

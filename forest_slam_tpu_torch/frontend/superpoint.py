@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from forest_slam_tpu_torch.frontend.fast import top_k
 from forest_slam_tpu_torch.frontend.select_kernel import BLOCK, BORDER, nms_block_max, nms_block_max_plain, nms_kept_plain
 from forest_slam_tpu_torch.utils.filters import conv2d_separable
 
@@ -181,7 +182,9 @@ def select_keypoints(heat, coarse_desc, cfg: SuperPointConfig) -> SuperPointFeat
     """(B, H, W) heat maps -> fixed-size keypoint sets: 9x9 NMS, threshold,
     a 4 px border, exact top-k over 4x4 block maxima (superpoint.py's XLA
     path with topk_method="exact"), or over all pixels where the block path
-    does not apply."""
+    does not apply. Equal scores keep index order, as ``jax.lax.top_k``
+    returns them (``fast.top_k``), so a tie at the K-th slot keeps the
+    lower block or pixel on every device."""
     if cfg.nms_backend not in ("auto", "plain"):
         raise ValueError(f"unknown nms_backend {cfg.nms_backend!r}")
     B, H, W = heat.shape
@@ -189,11 +192,11 @@ def select_keypoints(heat, coarse_desc, cfg: SuperPointConfig) -> SuperPointFeat
     if block_path(cfg, H, W):
         pool = nms_block_max if cfg.nms_backend == "auto" else nms_block_max_plain
         bvals, bidx = pool(heat.contiguous(), cfg.nms_radius, cfg.keypoint_threshold, BORDER)
-        vals, t = torch.topk(bvals.reshape(B, -1), K, dim=1)
+        vals, t = top_k(bvals.reshape(B, -1), K)
         idx = bidx.reshape(B, -1).gather(1, t).long()
     else:
         kept = nms_kept_plain(heat, cfg.nms_radius, cfg.keypoint_threshold, BORDER)
-        vals, idx = torch.topk(kept.reshape(B, H * W), K, dim=1)
+        vals, idx = top_k(kept.reshape(B, H * W), K)
     valid = vals > 0.0
     xy = torch.stack([(idx % W).float(), torch.div(idx, W, rounding_mode="floor").float()], dim=-1)
     xy = xy * valid[..., None]

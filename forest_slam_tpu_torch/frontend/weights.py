@@ -23,6 +23,9 @@ from forest_slam_tpu_torch.frontend.superpoint import _CONVS, SuperPointConfig, 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights")
 # the flagship inference checkpoint (stem-4, 9 GNN layers, 20 Sinkhorn iterations)
 FLAGSHIP_PATH = os.path.join(WEIGHTS_DIR, "learned_frontend_stem4_wb_blur2.msgpack")
+# the plain gates' checkpoint (frontend/weights.py:66-82): stem 2, com3
+# sub-pixel readout, continued on wide frame gaps
+PLAIN_WB_PATH = os.path.join(WEIGHTS_DIR, "learned_frontend_stem2_subpix_wide.msgpack")
 
 
 def read_checkpoint(path: str) -> tuple[dict, dict]:

@@ -1,7 +1,13 @@
-"""Timestamped trajectories (port of io/tum.py's ``Trajectory``)."""
+"""TUM trajectory files (port of io/tum.py).
+
+Rows of ``timestamp tx ty tz qx qy qz qw``, written with ``%f`` and single
+spaces; the reader skips blank and ``#`` lines, takes commas as separators
+and keeps duplicate stamps.
+"""
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -30,3 +36,55 @@ class Trajectory(NamedTuple):
             positions=T[:, :3, 3].copy(),
             quaternions=quats,
         )
+
+
+def _rows(traj: Trajectory) -> np.ndarray:
+    return np.column_stack([traj.timestamps, traj.positions, traj.quaternions])
+
+
+def read_tum(path: str) -> Trajectory:
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.replace(",", " ").split()
+            if len(parts) >= 8:
+                rows.append([float(p) for p in parts[:8]])
+    data = np.asarray(rows, np.float64).reshape(-1, 8)
+    return Trajectory(timestamps=data[:, 0], positions=data[:, 1:4], quaternions=data[:, 4:8])
+
+
+def write_tum(path: str, traj: Trajectory) -> None:
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    np.savetxt(path, _rows(traj), delimiter=" ", fmt="%f")
+
+
+class StreamingTumWriter:
+    """Appends rows to a TUM file chunk by chunk, flushed and synced after
+    each, so a crash loses at most the chunk being written."""
+
+    def __init__(self, path: str):
+        parent = os.path.dirname(path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        self._f = open(path, "w")
+
+    def append(self, timestamps, matrices) -> None:
+        traj = Trajectory.from_matrices(np.asarray(timestamps, np.float64), np.asarray(matrices, np.float64))
+        np.savetxt(self._f, _rows(traj), delimiter=" ", fmt="%f")
+        self._f.flush()
+        os.fsync(self._f.fileno())
+
+    def close(self) -> None:
+        if not self._f.closed:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -43,13 +43,23 @@ class StereoConfig(NamedTuple):
     compose_mode: str = "parity"
     min_depth: float = 0.1
     max_depth: float = 1000.0
-    # SAD refinement of the observations (0 = off); refinement failures
-    # leave the PnP input set and its quality biases the RANSAC draws
+    # SAD refinement of the observations (0 = off)
     match_refine_radius: int = 0
     match_refine_cost_path: str = "auto"
     # the default front end of run_stereo_vo: ORB and its Hamming gate
     orb: OrbConfig = OrbConfig()
     max_match_distance: int = 64
+    # when refining: drop matches that fail the refinement's uniqueness gate
+    # from the PnP input set (match_refine_filter), and bias the RANSAC
+    # draws by the refinement's quality (pnp_quality_sampling)
+    match_refine_filter: bool = True
+    pnp_quality_sampling: bool = True
+    # scale ratios the refinement searches (RefineConfig.scales)
+    match_refine_scales: tuple = (1.0,)
+    # per-frame exposure compensation at ingest (photo_normalize_stack)
+    photo_norm: bool = False
+    # PnP minimal solver: "dlt6" or "p3p"
+    pnp_minimal: str = "dlt6"
 
 
 class StereoStepOut(NamedTuple):
@@ -88,6 +98,15 @@ def _cat(parts):
     return type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
 
 
+def photo_normalize_stack(images: torch.Tensor) -> torch.Tensor:
+    """Per-frame exposure compensation: each (H, W) frame remapped to mean
+    127 and standard deviation 48, clipped to [0, 255]
+    (pipelines/stereo.py:photo_normalize_stack)."""
+    mean = images.mean(dim=(-2, -1), keepdim=True)
+    std = torch.clamp(images.std(dim=(-2, -1), correction=0, keepdim=True), min=1e-3)
+    return torch.clamp((images - mean) / std * 48.0 + 127.0, 0.0, 255.0)
+
+
 def frame_features(images_l, images_r, rig: StereoRig, cfg: StereoConfig, frontend: FrontendFns):
     """Features + per-keypoint depth for a batch of frames (B, H, W)."""
     feats = frontend.extract(images_l)
@@ -109,16 +128,19 @@ def match_and_pnp(prev_feats, pts3d, depth_ok, cur_feats, rig: StereoRig, cfg: S
     if cfg.match_refine_radius > 0 and img_prev is not None:
         obs, ok_r, quality = refine_matches_quality(
             img_prev, img_cur, prev_feats.xy, obs, valid,
-            RefineConfig(radius=cfg.match_refine_radius, cost_path=cfg.match_refine_cost_path),
+            RefineConfig(radius=cfg.match_refine_radius, cost_path=cfg.match_refine_cost_path,
+                         scales=tuple(cfg.match_refine_scales)),
         )
-        valid = valid & ok_r
-        # floor so no valid point is unsampleable on a flat valley
-        weights = torch.clamp(quality, min=0.05)
+        if cfg.match_refine_filter:
+            valid = valid & ok_r
+        if cfg.pnp_quality_sampling:
+            # floor so no valid point is unsampleable on a flat valley
+            weights = torch.clamp(quality, min=0.05)
     pnp = solve_pnp_ransac(
         pts3d, obs, valid, rig.left, generator=generator,
         reproj_threshold=cfg.reproj_threshold_px, n_hypotheses=cfg.n_hypotheses,
         min_inliers=cfg.min_points, refine_iters=cfg.refine_iters, weights=weights,
-        gumbel=gumbel, uniform=uniform,
+        gumbel=gumbel, uniform=uniform, minimal=cfg.pnp_minimal,
     )
     n_valid = valid.sum(-1)
     ratio = cfg.min_inlier_ratio
@@ -164,7 +186,10 @@ def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, 
                          frontend: FrontendFns, frame_batch: int = 8, pair_batch: int = 8) -> StereoStepOut:
     """Whole-sequence VO of (N, H, W) stereo stacks in [0, 255]: frames
     1..N-1 relative to frame 0. Batch loops stand in for the JAX runner's
-    ``lax.map``; the PnP draws come from ``generator``."""
+    ``lax.map``; the PnP draws come from ``generator``. With
+    ``cfg.photo_norm`` every frame is exposure-compensated first."""
+    if cfg.photo_norm:
+        images_l, images_r = photo_normalize_stack(images_l), photo_normalize_stack(images_r)
     n = images_l.shape[0]
     image_shape = tuple(images_l.shape[1:])
     parts = [frame_features(images_l[s:s + frame_batch], images_r[s:s + frame_batch], rig, cfg, frontend)

@@ -125,12 +125,15 @@ def main() -> int:
             timed("sdpa", True, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale))
         if "gnn_layer" in kernels:
             for name, (N, L) in (("gnn_layer", (2 * smoke.PAIR_BATCH, smoke.K)),
-                                 ("gnn_layer_lowres", (2 * smoke.LOWRES_FRAMES, smoke.LOWRES_K))):
+                                 ("gnn_layer_lowres", (2 * smoke.LOWRES_FRAMES, smoke.LOWRES_K)),
+                                 ("gnn_layer_bench", (2 * smoke.BENCH_PAIRS, smoke.K))):
                 *_, ok, (x, src, m) = smoke.gnn_case(dev, gen, ws, heads, N, L, L, False)
                 timed(name, ok, lambda: gnn_layer(x, src, m, ws, heads))
         if "sinkhorn_decode" in kernels:
             iters = fe.cfg.superglue.sinkhorn_iterations
-            for name, shape in (("sinkhorn", smoke.SINKHORN_SHAPES[0]), ("sinkhorn_lowres", smoke.SINKHORN_SHAPES[1])):
+            named = [("sinkhorn", smoke.SINKHORN_SHAPES[0]), ("sinkhorn_lowres", smoke.SINKHORN_SHAPES[1])]
+            named += [(f"sinkhorn {sh[0]}x{sh[1]}x{sh[2]}", sh) for sh in smoke.SINKHORN_SHAPES[3:]]
+            for name, shape in named:
                 *_, ok, args = smoke.sinkhorn_case(dev, gen, shape, fe.superglue.bin_score, iters)
                 timed(name, ok, lambda: sinkhorn_decode(*args))
                 if clusters:
@@ -145,6 +148,10 @@ def main() -> int:
             plain = [detect_kernel.detect_pooled_plain(lv, *dargs) for lv in levels]
             ok = all(smoke.detect_agreement(detect_call(levels, dargs)(), plain)[1:4])
             timed("detect", ok, detect_call(levels, dargs))
+            big, _ = smoke.detect_case(dev, gen, smoke.BENCH_FRAMES)
+            plain = [detect_kernel.detect_pooled_plain(lv, *dargs) for lv in big]
+            ok = all(smoke.detect_agreement(detect_call(big, dargs)(), plain)[1:4])
+            timed(f"detect {smoke.BENCH_FRAMES} frames", ok, detect_call(big, dargs))
             # the same launch on the levels of rendered frames, where FAST
             # fires far less often than on noise
             il = smoke.render_frames(dev, smoke.H, smoke.W, smoke.FRAME_BATCH)[0].contiguous()
@@ -158,7 +165,10 @@ def main() -> int:
             ok = all(smoke.detect_agreement(detect_call(frames, dargs)(), plain)[1:4])
             timed("detect_rendered", ok, detect_call(frames, dargs), corners=corner_shares(frames, dargs))
         if "refine_cost" in kernels:
-            for name, shape in zip(("refine_cost", "refine_cost_lowres"), smoke.REFINE_SHAPES):
+            names = ["refine_cost", "refine_cost_lowres"] + [
+                "refine_cost {}x{} R{} frame0 {}x{}".format(sh[0], sh[5], sh[6], sh[2], sh[1])
+                for sh in smoke.REFINE_SHAPES[2:]]
+            for name, shape in zip(names, smoke.REFINE_SHAPES):
                 _, ok, _, args = smoke.refine_case(dev, gen, shape)
                 timed(name, ok, lambda: refine_cost_volume(*args))
         if "sparse_cost" in kernels:

@@ -7,7 +7,10 @@ Run from the repository root with no arguments:
 
 It drives the four paths of chip_smoke.py with their configurations: ORB,
 learned and learned with the unfused GNN on the 960x600 corridor clip, and
-the lowres gate on 24 corridor frames at 224x160, three times each after a
+the lowres gate on 24 corridor frames at 224x160; then the 962-pair workload
+of ``forest_slam_tpu_torch.bench`` (learned and ORB) and one seed of its
+wb_k10 gate (octaves 1.0, 0.707, 0.5, refine radius 24 at four scales,
+P3P, 15 pairs in one batch), three times each after a
 warm-up run: once plain for the wall time, once with every phase
 synchronised and timed on the host clock (per-frame features and depth,
 per-pair matching and PnP, chaining), and, after both paths have run so,
@@ -143,6 +146,22 @@ def main() -> int:
     }
     pairs = {"orb": cs.N_FRAMES - 1, "learned": cs.N_FRAMES - 1, "unfused": cs.N_FRAMES - 1,
              "lowres": cs.LOWRES_FRAMES - 1}
+
+    from forest_slam_tpu_torch import bench
+    from forest_slam_tpu_torch.io.synthetic import default_rig
+
+    for kind in ("sp", "orb"):
+        wl = bench.prepare_workload(kind, dev)
+        name = "bench_learned" if kind == "sp" else "bench_orb"
+        paths[name], pairs[name] = wl.run, wl.truth.shape[0] - 1
+    gate = next(g for g in bench.GATES if g.tag == "wb_k10")
+    wl_, wr_, _ = bench.gate_clip(gate, dev, {})
+    wb_cfg = bench.main_config("sp")._replace(match_refine_radius=24, match_refine_scales=bench.WB_REFINE_SCALES,
+                                              pnp_minimal="p3p")
+    wb_fe = load_learned_frontend(FLAGSHIP_PATH, (cs.H, cs.W), cs.K, device=dev, scales=bench.WB_SCALES)
+    wb_rig = default_rig(cs.H, cs.W, baseline=bench.BASELINE, device=dev)
+    paths["gate_wb_k10"] = lambda: bench.run_vo_gate_seed(wl_, wr_, wb_rig, wb_cfg, wb_fe, 0)
+    pairs["gate_wb_k10"] = gate.n_frames - 1
     result = {"device": smi, "pairs": pairs, "paths": {}}
     for name, run in paths.items():
         run()  # warm-up

@@ -472,3 +472,121 @@ def test_attention_function_gradients(cuda):
     with pytest.raises(ValueError, match="64-wide"):
         attention_forward(*(torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16, device=dev),) * 3,
                           torch.ones((1, 8), dtype=torch.bool, device=dev), 0.125)
+
+
+# the shapes bench.py's workload and gates add (forest_slam_tpu_torch/bench.py)
+
+
+def _tied_heat(B, H, W, step=8):
+    """tests/test_torch_select.py's tied heat (that file imports jax; this
+    one runs where jax is not installed): equal 0.5 peaks on a grid, a few
+    0.7 peaks, a floor under the threshold."""
+    heat = torch.full((B, H, W), 0.001)
+    heat[:, 4:H - 4:step, 4:W - 4:step] = 0.5
+    heat[:, 12:H - 4:3 * step, 20:W - 4:5 * step] = 0.7
+    return heat
+
+
+@pytest.mark.parametrize("shape, K", [((2, 64, 128), 64), ((1, 62, 128), 40), ((4, 600, 960), 1024)])
+def test_select_keypoints_tie_order_card_equals_cpu(cuda, shape, K):
+    """Tied heat across blocks and across the K-th slot: the keypoints the
+    card keeps, in slot order, are the CPU path's (which
+    tests/test_torch_select.py holds to the JAX order); the block path
+    launches the select kernel, the dense path (62 rows) takes the top-k
+    alone."""
+    from forest_slam_tpu_torch.frontend.superpoint import SuperPointConfig, block_path, select_keypoints
+
+    dev, g = cuda
+    B, H, W = shape
+    heat = _tied_heat(B, H, W)
+    coarse = torch.randn((B, H // 8, W // 8, 16), generator=torch.Generator().manual_seed(0))
+    coarse = coarse / coarse.norm(dim=-1, keepdim=True)
+    cfg = SuperPointConfig(max_keypoints=K, descriptor_dim=16, desc_sample_dtype=None)
+    n = nms_block_max.launches
+    got = select_keypoints(heat.to(dev), coarse.to(dev), cfg)
+    assert nms_block_max.launches == n + int(block_path(cfg, H, W))
+    ref = select_keypoints(heat, coarse, cfg)
+    assert torch.equal(got.xy.cpu(), ref.xy) and torch.equal(got.score.cpu(), ref.score)
+    assert torch.equal(got.valid.cpu(), ref.valid) and float(ref.score[0, -1]) == 0.5
+
+
+# frame 0 upscaled by the wide-baseline refine scales 1.0, 1.2, 1.44, 1.7
+# (960x600 -> 1152x720, 1382x864, 1632x1020) against frame 1 at 960x600
+@pytest.mark.parametrize("H0, W0", [(600, 960), (720, 1152), (864, 1382), (1020, 1632)])
+def test_refine_cost_kernel_radius_24_upscaled_frame0(cuda, H0, W0):
+    dev, g = cuda
+    t, R, B = 8, 24, 3
+    kp = keypoints_per_block(t, R)
+    K = 5 * kp + 2
+    img0 = torch.randint(0, 256, (B, H0, W0), generator=g, device=dev).float()
+    img1 = torch.randint(0, 256, (B, 600, 960), generator=g, device=dev).float()
+    ri = lambda hi: torch.randint(0, hi, (B, K), generator=g, device=dev, dtype=torch.int32)
+    xi1, yi1 = ri(960), ri(600)
+    xi0 = (xi1.float() * W0 / 960).round().int().clamp(0, W0 - 1)
+    yi0 = (yi1.float() * H0 / 600).round().int().clamp(0, H0 - 1)
+    xi0[:, :2], yi0[:, :2] = torch.tensor([0, W0 - 1], device=dev, dtype=torch.int32), torch.tensor(
+        [H0 - 1, 0], device=dev, dtype=torch.int32)
+    nvalid = torch.tensor([K, K // 3, 0], dtype=torch.int32, device=dev)
+    args = (img0, img1, xi0.contiguous(), yi0.contiguous(), xi1, yi1, t, R, nvalid)
+    n = refine_cost_volume.launches
+    got = refine_cost_volume(*args)
+    assert refine_cost_volume.launches == n + 1 and got.shape == (B, K, 49, 49)
+    torch.testing.assert_close(got, refine_cost_volume_plain(*args), rtol=0, atol=0)
+    assert (got[2] == 0).all() and (got[0] > 0).any()
+
+
+@pytest.mark.parametrize("shape", [(2, 416, 672), (2, 288, 480), (16, 416, 672)])
+def test_select_kernel_wide_baseline_octaves(cuda, shape):
+    """The octaves 0.707 and 0.5 of 960x600 at the flagship's stride 32, as
+    resized heat hands them to the kernel (contiguous)."""
+    from forest_slam_tpu_torch.utils.filters import resize_bilinear
+
+    dev, g = cuda
+    B, H, W = shape
+    heat = resize_bilinear(_peaky_heat(g, dev, B, 600, 960), H, W).contiguous()
+    n = nms_block_max.launches
+    vals, idx = nms_block_max(heat)
+    assert nms_block_max.launches == n + 1
+    ref_v, ref_i = nms_block_max_plain(heat)
+    assert int((ref_v > 0).sum()) > 10
+    assert torch.equal(vals, ref_v) and torch.equal(idx, ref_i)
+
+
+def test_p3p_ransac_card_equals_cpu(cuda):
+    """P3P RANSAC with the same injected draws on the card and on the CPU.
+    The card's float32 arithmetic rounds differently (fused multiply-adds,
+    its own sqrt, atan2 and SVD), which can move an ill-conditioned
+    hypothesis, so poses to 1e-3 and inlier counts within 3, both near the
+    truth."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.core.camera import PinholeCamera
+    from forest_slam_tpu_torch.core.lie import se3_exp
+    from forest_slam_tpu_torch.geometry.pnp import solve_pnp_ransac
+
+    dev, _ = cuda
+    rng = np.random.default_rng(1)
+    Kmat = np.array([[643.2, 0, 479.5], [0, 643.2, 299.5], [0, 0, 1]], np.float32)
+    P, N, Hyp = 3, 600, 1024
+    T = se3_exp(torch.tensor([0.02, -0.01, 0.15, 0.01, -0.02, 0.005], dtype=torch.float64)).numpy()
+    X = np.stack([rng.uniform(-4, 4, (P, N)), rng.uniform(-1.5, 1.5, (P, N)), rng.uniform(3, 25, (P, N))], -1)
+    pc = X @ T[:3, :3].T + T[:3, 3]
+    uv = pc[..., :2] / pc[..., 2:] * Kmat[0, 0] + Kmat[:2, 2] + rng.normal(size=(P, N, 2)) * 0.2
+    bad = rng.random((P, N)) < 0.6
+    uv[bad] += rng.uniform(-40, 40, (int(bad.sum()), 2))
+    valid = rng.random((P, N)) > 0.05
+    G = -np.log(-np.log(rng.uniform(1e-12, 1.0, (P, Hyp, N))))
+    U = rng.uniform(1e-9, 1.0, (P, N))
+    w = rng.uniform(0.05, 1.0, (P, N))
+    out = []
+    for d in ("cpu", dev):
+        cam = PinholeCamera(K=torch.as_tensor(Kmat, device=d), dist=torch.zeros(5, device=d), width=960, height=600)
+        f = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=d)
+        out.append(solve_pnp_ransac(f(X), f(uv), f(valid, torch.bool), cam, n_hypotheses=Hyp, weights=f(w),
+                                    minimal="p3p", gumbel=f(G), uniform=f(U)))
+    cpu, card = out
+    assert bool(card.ok.all()) and bool(cpu.ok.all())
+    torch.testing.assert_close(card.R.cpu(), cpu.R, rtol=0, atol=1e-3)
+    torch.testing.assert_close(card.t.cpu(), cpu.t, rtol=0, atol=1e-3)
+    assert (card.n_inliers.cpu() - cpu.n_inliers).abs().max() <= 3
+    assert (cpu.t - torch.as_tensor(T[:3, 3], dtype=torch.float32)).abs().max() < 0.05

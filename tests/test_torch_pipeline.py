@@ -9,7 +9,9 @@ and PnP-RANSAC with the same injected draws. Phase by phase:
 - matches: at least 97% of ``matches0`` equal (bf16 roundings in the GNN may
   flip near-tie assignments);
 - given the same matches: refined observations to 1e-3 px, validity equal,
-  and gated relative poses (then the chained trajectory) to 1e-3.
+  and gated relative poses (then the chained trajectory) to 1e-3; the same
+  with the refinement's filter and quality sampling off and P3P as the
+  minimal solver (validity equal, poses to 1e-3).
 """
 
 import numpy as np
@@ -103,7 +105,26 @@ def run():
         valid = (m >= 0) & pok & (pz > 0.1) & (pz < 1000.0) & pf.valid
         obs = jslab[i + 1][0].xy[jnp.where(m >= 0, m, 0)]
         jobs.append(refine_fn(jnp.asarray(il[i]), jnp.asarray(il[i + 1]), pf.xy, obs, valid))
-    return dict(jslab=jslab, tfeats=tfeats, tz=tz, tzok=tzok, jm=jm, tm=tm, jpairs=jpairs, tpairs=tpairs, jobs=jobs)
+    def pairs_with(**switches):
+        """Both pair phases again with other StereoConfig switches."""
+        jc, tc = jcfg._replace(**switches), tcfg._replace(**switches)
+        mp = pytest.MonkeyPatch()
+        mp.setattr(jax.random, "gumbel", lambda key, shape, *a, **k: jnp.asarray(G).reshape(shape))
+        mp.setattr(jax.random, "uniform", lambda key, shape, *a, **k: jnp.asarray(U).reshape(shape))
+        fn = jax.jit(lambda pf, pz, pok, cf, m, a, b: jst._pair_from_slab(
+            pf, pz, pok, cf, jax.random.PRNGKey(0), jrig, jc, given, m, (H, W), a, b))
+        jp = [fn(*jslab[i], jslab[i + 1][0], jnp.asarray(jm[i]), jnp.asarray(il[i]), jnp.asarray(il[i + 1]))
+              for i in range(P)]
+        mp.undo()
+        tp = tst.pair_from_slab(
+            sl(tfeats, 0, P), tz[:P], tzok[:P], sl(tfeats, 1, N_FRAMES), trig, tc, tgiven, (H, W),
+            torch.as_tensor(il[:P]), torch.as_tensor(il[1:]),
+            gumbel=torch.as_tensor(G).expand(P, -1, -1), uniform=torch.as_tensor(U).expand(P, -1),
+        )
+        return jp, tp
+
+    return dict(jslab=jslab, tfeats=tfeats, tz=tz, tzok=tzok, jm=jm, tm=tm, jpairs=jpairs, tpairs=tpairs, jobs=jobs,
+                pairs_with=pairs_with)
 
 
 def test_features_and_depths_match(run):
@@ -144,3 +165,23 @@ def test_refined_observations_match(run):
         ok = np.asarray(ok)
         assert ok.sum() > 20
         np.testing.assert_allclose(tp.obs[i].numpy(), np.asarray(obs), atol=1e-3)
+
+
+def test_refine_switches_off_and_p3p_match(run):
+    """match_refine_filter and pnp_quality_sampling off (refinement failures
+    stay in the PnP input set, uniform draws) with the P3P solver."""
+    jpairs, tp = run["pairs_with"](match_refine_filter=False, pnp_quality_sampling=False, pnp_minimal="p3p")
+    for i, jp in enumerate(jpairs):
+        np.testing.assert_array_equal(tp.valid[i].numpy(), np.asarray(jp.valid))
+        assert np.asarray(jp.valid).sum() > np.asarray(run["jpairs"][i].valid).sum()  # the filter was off
+        assert bool(jp.ok) and bool(tp.ok[i])
+        np.testing.assert_allclose(tp.rel[i].numpy(), np.asarray(jp.rel), atol=1e-3)
+        assert abs(int(tp.n_inliers[i]) - int(jp.n_inliers)) <= 2
+
+
+def test_stereo_config_switches_default_as_the_reference():
+    j, t = jst.StereoConfig(), tst.StereoConfig()
+    for f in ("match_refine_filter", "pnp_quality_sampling", "match_refine_scales", "photo_norm", "pnp_minimal"):
+        assert getattr(t, f) == getattr(j, f), f
+    with pytest.raises(TypeError):
+        tst.StereoConfig(dense_depth=True)

@@ -182,3 +182,35 @@ def test_unknown_backend_raises():
     heat = torch.zeros((1, 64, 128))
     with pytest.raises(ValueError, match="nms_backend"):
         select_keypoints(heat, torch.zeros((1, 8, 16, 16)), SuperPointConfig(nms_backend="pallas"))
+
+
+def tied_heat(B, H, W, step=8):
+    """Heat whose survivors tie: equal 0.5 peaks on a grid ``step`` px apart
+    (more of them than the K slots), a few 0.7 peaks, and a flat 0.001
+    floor under the threshold."""
+    heat = np.full((B, H, W), 0.001, np.float32)
+    heat[:, 4:H - 4:step, 4:W - 4:step] = 0.5
+    heat[:, 12:H - 4:3 * step, 20:W - 4:5 * step] = 0.7
+    return heat
+
+
+@pytest.mark.parametrize("shape, K", [((2, 64, 128), 64), ((1, 62, 128), 40)])
+def test_tied_heat_keeps_the_jax_order(shape, K):
+    """Equal scores across blocks and across the K-th slot (block path at
+    64x128; the dense top-k at 62 rows): the port's keypoints, in slot order,
+    are the JAX XLA path's at topk_method="exact", lowest index first among
+    equal scores."""
+    heat = tied_heat(*shape)
+    n_tied = int((heat[0] == 0.5).sum())
+    assert n_tied > K
+    coarse = _coarse(np.random.default_rng(0), shape[0], shape[1] // 8 * 8, shape[2], D=16)
+    jcfg = JConfig(max_keypoints=K, descriptor_dim=16, topk_method="exact", desc_sample_dtype=None,
+                   nms_backend="xla")
+    jf = jselect(jnp.asarray(heat), jnp.asarray(coarse), jcfg)
+    tf = select_keypoints(torch.as_tensor(heat), torch.as_tensor(coarse),
+                          SuperPointConfig(max_keypoints=K, descriptor_dim=16, desc_sample_dtype=None))
+    np.testing.assert_array_equal(tf.xy.numpy(), np.asarray(jf.xy))
+    np.testing.assert_array_equal(tf.score.numpy(), np.asarray(jf.score))
+    np.testing.assert_array_equal(tf.valid.numpy(), np.asarray(jf.valid))
+    # the K-th slot holds a 0.5 peak: the tie decided which one is kept
+    assert float(tf.score[0, -1]) == 0.5 and bool(tf.valid.all())
