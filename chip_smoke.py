@@ -57,14 +57,25 @@ Phases, each printing one line with its elapsed seconds:
    gates that pass in the JAX package's record (``BENCH_r05.json``) are held
    to ``bench.py``'s bounds, ``blur_wb_k10`` and ``plain_k20`` (which fail
    there too) are printed only; the plain gates print that they did not run
-   where their checkpoint is absent.
+   where their checkpoint is absent;
+10. training (``python -m forest_slam_tpu_torch.train``'s recipe at full
+   width: stem 2, 9 layer pairs, 16 pairs of 120x160, 48 corners; the
+   corridor pool cut to 128 pairs, the run to 300 steps): one step on the
+   card against the CPU's on the same batch and parameters (loss terms and
+   gradients within ``TRAIN_AGREEMENT``), then ``train`` from
+   ``create_train_state``, whose loss must fall (the last tenth's mean below
+   0.8x the first tenth's), with the attention kernel launched 18 times a
+   step and no other kernel; steps/s printed with the card's name and power
+   limit; the trained weights written by ``save_params`` and read back by
+   ``load_learned_frontend`` unchanged.
 
 The kernel checks also run the shapes the workload and the gates give the
 kernels: the sparse cost at 32 frames of K=1024 and of 512, the GNN layer at
 96 sequences, Sinkhorn at 48, 15 and 7 pairs, refine at 48 pairs and at
 radius 24 with frame 0 upscaled by 1.0, 1.2, 1.44 and 1.7 against frame 1
 at 960x600, select at 32 960x600 frames and at the wide-baseline octaves
-(416x672 and 288x480) of 16 frames, detect over the levels of 32 frames.
+(416x672 and 288x480) of 16 frames, detect over the levels of 32 frames, and
+attention at the training step's (32, 4, 48, 64).
 
 Each path starts with every launch count at 0 and reads them when it ends.
 
@@ -613,6 +624,11 @@ def check_attention(dev, gen):
     B = 2 * PAIR_BATCH  # both images of a pair batch in one launch
     err, mean_err, _, ok, masked_row_err, (q, k, v, mask, scale) = attention_case(dev, gen, (B, HEADS, K, K))
     r_err, r_mean, r_top, r_ok, r_masked, _ = attention_case(dev, gen, ATTENTION_RAGGED)
+    # the training step's shape: both images of 16 pairs, 48 corners
+    t_err, t_mean, t_top, t_ok, t_masked, (tq, tk, tv, tmask, _) = attention_case(dev, gen, ATTENTION_TRAIN)
+    tb, th, tK, tS = ATTENTION_TRAIN
+    t_bound = bound(4 * tq.numel() * 2 + tmask.numel(), 4 * tb * th * tK * tS * HEAD_DIM, BF16_OPS)
+    t_amask = tmask[:, None, None, :]
     amask = mask[:, None, None, :]
     sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale)
     b_ms, b_by = bound(4 * q.numel() * 2 + mask.numel(), 4 * B * HEADS * K * K * HEAD_DIM, BF16_OPS)
@@ -620,15 +636,94 @@ def check_attention(dev, gen):
         name="attention", source="forest_slam_tpu_torch/csrc/attention.cu",
         replaces="forest_slam_tpu/frontend/pallas_attention.py:149",
         tolerance="max <= 2^-7 * max|ref|, mean <= 1e-3 * max|ref|",
-        max_abs_err=err, mean_abs_err=mean_err, masked_row_err=masked_row_err, ok=ok and r_ok,
+        max_abs_err=err, mean_abs_err=mean_err, masked_row_err=masked_row_err, ok=ok and r_ok and t_ok,
         ragged=dict(shape=list(ATTENTION_RAGGED), max_abs_err=r_err, mean_abs_err=r_mean, max_abs_ref=r_top,
                     masked_row_err=r_masked, ok=r_ok),
+        train_shape=dict(shape=list(ATTENTION_TRAIN), max_abs_err=t_err, mean_abs_err=t_mean, max_abs_ref=t_top,
+                         masked_row_err=t_masked, ok=t_ok, ms=time_ms(lambda: attention_forward(tq, tk, tv, tmask, scale)),
+                         plain_ms=time_ms(lambda: masked_attention_plain(tq, tk, tv, tmask, scale)),
+                         bound_ms=t_bound[0], bound_by=t_bound[1],
+                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(tq, tk, tv, attn_mask=t_amask,
+                                                                                   scale=scale))),
         sdpa_nan_rows=bool(torch.isnan(sdpa[-1]).any().item()),
         ms=time_ms(lambda: attention_forward(q, k, v, mask, scale)),
         plain_ms=time_ms(lambda: masked_attention_plain(q, k, v, mask, scale)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale)),
     )
+
+
+# the training phase: python -m forest_slam_tpu_torch.train's recipe (the
+# JAX package's train-frontend, cli.py:723-772) at full width: SuperPoint
+# stem 2, channels (64, 64, 128, 128), D=256; SuperGlue 9 layer pairs, 4
+# heads, 20 Sinkhorn iterations; 16 pairs of 120x160 a batch, 48 corners,
+# lr 1e-3, texture 0.4, corridor 0.3. Cut: the corridor pool, 128 pairs in
+# place of 4096, and the run, 300 steps in place of 2000.
+TRAIN_STEPS = 300
+TRAIN_BATCH, TRAIN_H, TRAIN_W, TRAIN_M = 16, 120, 160, 48
+TRAIN_POOL = 128
+TRAIN_LOSS_RATIO = 0.8  # tests/test_training.py's rule, over tenths of the run
+ATTENTION_TRAIN = (2 * TRAIN_BATCH, HEADS, TRAIN_M, TRAIN_M)  # both images of a batch, one launch
+# One step on the card against the CPU, same batch and parameters. The bf16
+# model's gradient through SuperGlue's Sinkhorn NLL is sensitive: on the
+# CPU a 1e-6 relative perturbation of every parameter moves the matching
+# loss by 1.4e-3 and leaves the gradient at cosine 0.9978 (rel-L2 0.067, the
+# worst leaf 0.994; scripts/train_grad_envelope.py --side port); the card
+# sums its convolutions and attention in
+# another order. The bounds leave about five times that room; the
+# detector and descriptor terms, which skip SuperGlue, are held tighter.
+TRAIN_AGREEMENT = dict(detector=1e-3, descriptor=5e-3, matching=3e-2, loss=3e-2, sp_min_cos=0.98,
+                       global_cos=0.95, global_rel=0.35, leaf_min_cos=0.85)
+
+
+def train_config():
+    from forest_slam_tpu_torch.frontend.superpoint import SuperPointConfig
+    from forest_slam_tpu_torch.train.trainer import TrainConfig
+
+    return TrainConfig(superpoint=SuperPointConfig(stem_stride=2), height=TRAIN_H, width=TRAIN_W,
+                       batch_size=TRAIN_BATCH, max_corners=TRAIN_M, learning_rate=1e-3, texture_fraction=0.4,
+                       corridor_fraction=0.3, corridor_pool_size=TRAIN_POOL)
+
+
+def step_gradients(fe, batch, cfg):
+    """One training step's metrics and gradients, of the total and of the
+    detector + descriptor terms, as float64 numpy by parameter name."""
+    from forest_slam_tpu_torch.train.trainer import loss_fn
+
+    names, params = zip(*fe.named_parameters())
+    total, m = loss_fn(fe, batch, cfg)
+    g_all = torch.autograd.grad(total, params, retain_graph=True)
+    g_sp = torch.autograd.grad(m["detector"] + m["descriptor"], params, allow_unused=True)
+
+    def host(grads):
+        return {n: np.zeros(p.numel()) if g is None else g.detach().double().cpu().numpy().ravel()
+                for n, p, g in zip(names, params, grads)}
+
+    return {k: float(v.detach()) for k, v in m.items()}, host(g_all), host(g_sp)
+
+
+def step_agreement(ref, got):
+    """How far one step's (metrics, gradients) are from another's: each
+    loss term's relative difference, the least cosine of a SuperPoint leaf's
+    detector + descriptor gradient, the whole gradient's cosine and relative
+    L2, the least cosine of a leaf that carries signal (norm above 1e-3 of
+    the whole), and whether all are within TRAIN_AGREEMENT."""
+    (rm, ra, rs), (gm, ga, gs) = ref, got
+    cos = lambda a, b: float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-30))
+    rel = {k: abs(gm[k] - rm[k]) / max(abs(rm[k]), 1e-12) for k in rm}
+    sp_min_cos = min(cos(rs[n], gs[n]) for n in rs if n.startswith("superpoint."))
+    a = np.concatenate(list(ra.values()))
+    g = np.concatenate([ga[n] for n in ra])
+    total = np.linalg.norm(a)
+    leaf_cos = {n: cos(ra[n], ga[n]) for n in ra if np.linalg.norm(ra[n]) >= 1e-3 * total}
+    worst = min(leaf_cos, key=leaf_cos.get)
+    out = dict(rel=rel, sp_min_cos=sp_min_cos, global_cos=cos(a, g), global_rel=float(np.linalg.norm(a - g) / total),
+               leaf_min_cos=leaf_cos[worst], leaf_worst=worst, leaves_checked=len(leaf_cos))
+    tol = TRAIN_AGREEMENT
+    out["ok"] = (all(rel[k] <= tol[k] for k in ("detector", "descriptor", "matching", "loss"))
+                 and sp_min_cos >= tol["sp_min_cos"] and out["global_cos"] >= tol["global_cos"]
+                 and out["global_rel"] <= tol["global_rel"] and out["leaf_min_cos"] >= tol["leaf_min_cos"])
+    return out
 
 
 def render_frames(dev, h, w, n):
@@ -695,6 +790,98 @@ def path_failures(name, out, tracked, err, launches, path_kernels, n_pairs=N_FRA
     busy = [k for k in idle_kernels if launches[k] != 0]
     if busy:
         failures.append(f"{name}: kernels launched that the path must not run: {busy}")
+    return failures
+
+
+def train_phase(dev, wrappers, launches_by_path, smi):
+    """Train from create_train_state through ``train`` (the entry point's
+    loop) on a pool rendered on the card: the loss must fall by the rule,
+    the attention kernel launch 18 times a step and no other kernel, one
+    step agree with the CPU's, and the checkpoint read back whole."""
+    import copy
+    import tempfile
+
+    from forest_slam_tpu_torch.frontend.weights import load_learned_frontend, params_to_jax, save_params
+    from forest_slam_tpu_torch.train.data import TrainingBatch, make_corridor_pool, make_training_batch
+    from forest_slam_tpu_torch.train.trainer import checkpoint_meta, create_train_state, train
+
+    failures = []
+    cfg = train_config()
+    t0 = time.time()
+    state = create_train_state(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    pool = make_corridor_pool(gen, TRAIN_POOL, TRAIN_H, TRAIN_W, TRAIN_M, device=dev)
+    torch.cuda.synchronize()
+    log(f"train: {TRAIN_POOL}-pair corridor pool rendered on the card in {time.time() - t0:.2f} s; labelled corners "
+        f"{int(pool.valid0.sum().item())} in view 0, {int(pool.valid1.sum().item())} visible in view 1")
+
+    # one step on the card against the CPU: same batch, same parameters
+    batch = make_training_batch(gen, TRAIN_BATCH, TRAIN_H, TRAIN_W, TRAIN_M, cfg.texture_fraction,
+                                cfg.corridor_fraction, pool, dev)
+    t0 = time.time()
+    card = step_gradients(state.frontend, batch, cfg)
+    t_card = time.time() - t0
+    t0 = time.time()
+    cpu = step_gradients(copy.deepcopy(state.frontend).cpu(), TrainingBatch(*(t.cpu() for t in batch)), cfg)
+    t_cpu = time.time() - t0
+    agree = step_agreement(cpu, card)
+    log(f"train: one step, card against CPU ({t_card:.2f} s vs {t_cpu:.2f} s, first calls): losses card "
+        + ", ".join(f"{k} {card[0][k]:.6g}" for k in card[0]) + "; relative differences "
+        + ", ".join(f"{k} {v:.3g}" for k, v in agree["rel"].items())
+        + f"; gradient cosine {agree['global_cos']:.6f}, rel-L2 {agree['global_rel']:.4f}, least leaf cosine "
+        f"{agree['leaf_min_cos']:.5f} ({agree['leaf_worst']}, {agree['leaves_checked']} leaves), SuperPoint's "
+        f"detector + descriptor gradient least cosine {agree['sp_min_cos']:.6f} (tolerance {TRAIN_AGREEMENT}): "
+        f"{'PASS' if agree['ok'] else 'FAIL'}")
+    if not agree["ok"]:
+        failures.append("train: the card's step disagrees with the CPU's")
+    del card, cpu
+
+    (state, history), launches, t_run = drive_path(
+        wrappers, lambda: train(cfg, TRAIN_STEPS, seed=0, log_every=50, state=state, device=dev,
+                                corridor_pool=pool, verbose=False))
+    launches_by_path["train"] = launches
+    losses = np.array([m["loss"] for _, m in history])
+    tenth = TRAIN_STEPS // 10
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    log(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} pairs at {TRAIN_W}x{TRAIN_H} (stem 2, "
+        f"{cfg.superglue.gnn_layers} layer pairs, {TRAIN_M} corners) in {t_run:.2f} s: {TRAIN_STEPS / t_run:.2f} steps/s on "
+        f"{torch.cuda.get_device_name(0)} ({smi}); mean loss first tenth {first:.4f}, last tenth {last:.4f} "
+        f"(ratio {last / first:.4f}, rule < {TRAIN_LOSS_RATIO}); last step "
+        + " ".join(f"{k}={v:.4f}" for k, v in history[-1][1].items()) + f"; launches {launches}")
+    print(json.dumps({"train": {"steps": TRAIN_STEPS, "steps_per_s": TRAIN_STEPS / t_run, "seconds": t_run,
+                                "loss_first_tenth": first, "loss_last_tenth": last,
+                                "loss_every_50": [round(float(x), 4) for x in losses[::50]],
+                                "agreement": {k: agree[k] for k in ("rel", "global_cos", "global_rel", "leaf_min_cos",
+                                                                     "sp_min_cos")},
+                                "launches": launches}}), flush=True)
+    if len(history) != TRAIN_STEPS or not all(np.isfinite(list(m.values())).all() for _, m in history):
+        failures.append("train: a loss is not finite (or steps are missing)")
+    if not last < TRAIN_LOSS_RATIO * first:
+        failures.append(f"train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    per_step = 2 * cfg.superglue.gnn_layers
+    if launches["attention"] != per_step * TRAIN_STEPS:
+        failures.append(f"train: {launches['attention']} attention launches, not {per_step} a step")
+    busy = [k for k, n in launches.items() if k != "attention" and n]
+    if busy:
+        failures.append(f"train: kernels launched that the training path must not run: {busy}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trained.msgpack")
+        save_params(params_to_jax(state.frontend), path, meta=checkpoint_meta(cfg))
+        back = load_learned_frontend(path, (TRAIN_H, TRAIN_W), TRAIN_M, device=dev)
+        saved, read = params_to_jax(state.frontend), params_to_jax(back)
+
+        def same(a, b):
+            if isinstance(a, dict):
+                return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+            return a.shape == b.shape and np.array_equal(a, b)
+
+        ok = same(saved, read) and back.cfg.superpoint.stem_stride == 2 and back.cfg.superglue.gnn_layers == 9
+        log(f"train: checkpoint of {os.path.getsize(path)} bytes written by save_params and read back by "
+            f"load_learned_frontend: {'equal weights' if ok else 'DIFFERENT'}")
+    if not ok:
+        failures.append("train: the checkpoint read back differs from the trained weights")
     return failures
 
 
@@ -782,6 +969,12 @@ def main() -> int:
     log(f"  attention at (B, h, K, S) = {tuple(rag['shape'])}: max error {rag['max_abs_err']:.6g} of "
         f"{rag['max_abs_ref']:.4g}, mean {rag['mean_abs_err']:.3g}, fully masked sequence to "
         f"{rag['masked_row_err']:.3g}: {'PASS' if rag['ok'] else 'FAIL'}")
+    trs = att["train_shape"]
+    log(f"  attention at the training step's (B, h, K, S) = {tuple(trs['shape'])}: max error {trs['max_abs_err']:.6g} "
+        f"of {trs['max_abs_ref']:.4g}, mean {trs['mean_abs_err']:.3g}, fully masked sequence to "
+        f"{trs['masked_row_err']:.3g}: {'PASS' if trs['ok'] else 'FAIL'}; {trs['ms']:.4f} ms vs plain "
+        f"{trs['plain_ms']:.4f} ms, bound {trs['bound_ms']:.4f} ms by {trs['bound_by']}, scaled_dot_product_attention "
+        f"{trs['library_ms']:.4f} ms")
     skh = by_name["sinkhorn_decode"]
     for p in skh["per_shape"]:
         pl = p["plan"]
@@ -966,6 +1159,10 @@ def main() -> int:
     if zero:
         failures.append(f"gates: kernels never launched: {zero}")
     print(json.dumps({"gates": gates, "gate_failures": gate_failures or None, "not_run": not_run}), flush=True)
+    torch.cuda.empty_cache()
+
+    # the training path: python -m forest_slam_tpu_torch.train's recipe at full width
+    failures += train_phase(dev, wrappers, launches_by_path, smi)
 
     if failures:
         print("FAIL: " + "; ".join(failures), file=sys.stderr)

@@ -1,5 +1,6 @@
 """Pinhole camera with Brown-Conrady distortion (port of core/camera.py, the
-parts the slice uses). Point ops are batched over leading dims (..., N, 2/3).
+parts the port uses). Point ops are batched over leading dims (..., N, 2/3);
+:func:`remap_bilinear` over the leading dims of its images.
 """
 
 from __future__ import annotations
@@ -100,3 +101,32 @@ def backproject_depth(pts2d: torch.Tensor, depth: torch.Tensor, cam: PinholeCame
     x = (pts2d[..., 0] - cam.cx) / cam.fx * depth
     y = (pts2d[..., 1] - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def remap_bilinear(image: torch.Tensor, src_map: torch.Tensor) -> torch.Tensor:
+    """Bilinear remap: sample ``image`` (..., H, W) at ``src_map`` (..., H',
+    W', 2) of (x, y) coordinates, leading dims broadcast; samples outside
+    the image are 0 (OpenCV's BORDER_CONSTANT), as core/camera.py's
+    ``remap_bilinear`` on an (H, W) image. Float32, differentiable in the
+    image and the map."""
+    H, W = image.shape[-2:]
+    img = image.float()
+    x = src_map[..., 0]
+    y = src_map[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = x0.long()
+    y0i = y0.long()
+    lead = torch.broadcast_shapes(img.shape[:-2], x.shape[:-2])
+    flat = img.expand(lead + (H, W)).reshape(lead + (H * W,))
+
+    def gather(yi, xi):
+        inside = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).expand(lead + x.shape[-2:])
+        vals = flat.gather(-1, idx.reshape(lead + (-1,))).reshape(idx.shape)
+        return torch.where(inside, vals, torch.zeros_like(vals))
+
+    return (gather(y0i, x0i) * (1 - fx) * (1 - fy) + gather(y0i, x0i + 1) * fx * (1 - fy)
+            + gather(y0i + 1, x0i) * (1 - fx) * fy + gather(y0i + 1, x0i + 1) * fx * fy)

@@ -1,4 +1,4 @@
-"""SE(3) utilities (port of core/lie.py, the parts the slice uses).
+"""SE(3) utilities (port of core/lie.py, the parts the port uses).
 
 Homogeneous transforms are (..., 4, 4) with points as column vectors,
 composed left to right. Small matrix products are written as broadcast sums,
@@ -72,6 +72,19 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     wx, wy, wz = w.unbind(-1)
     zero = torch.zeros_like(wx)
     return torch.stack([zero, -wz, wy, wz, zero, -wx, -wy, wx, zero], dim=-1).reshape(w.shape[:-1] + (3, 3))
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> rotation (..., 3, 3) by Rodrigues' formula,
+    with the Taylor series near theta = 0 (safe to differentiate)."""
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS))
+    small = theta2 < 1e-8
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    W = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + A[..., None, None] * W + B[..., None, None] * mm(W, W)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

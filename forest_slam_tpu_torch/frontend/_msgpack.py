@@ -1,9 +1,12 @@
-"""A small msgpack decoder for the repository's flax checkpoints.
+"""A small msgpack codec for the repository's flax checkpoints.
 
 Covers what the checkpoints hold: maps, arrays, strings, binary, ints,
-floats, and flax's ndarray extension (type 1): an embedded msgpack
-``[shape, dtype name, buffer]`` turned into a numpy array with
-``np.frombuffer``. Anything else raises.
+floats, booleans, nil, and flax's ndarray extension (type 1): an embedded
+msgpack ``[shape, dtype name, buffer]``, turned into a numpy array with
+``np.frombuffer``. :func:`packb` writes the same subset as
+``flax.serialization.to_bytes`` writes it (the smallest encoding of each
+int, float64 floats, maps in insertion order, numpy arrays as type-1
+extensions, C order); anything else raises.
 """
 
 from __future__ import annotations
@@ -89,3 +92,81 @@ def unpackb(data: bytes):
     if r.pos != len(r.data):
         raise ValueError(f"msgpack: {len(r.data) - r.pos} trailing bytes")
     return out
+
+
+def _head(out: bytearray, n: int, fix: int | None, fix_max: int, codes: tuple) -> None:
+    """A length or size prefix: the fix form below ``fix_max``, else the
+    8/16/32-bit code of ``codes`` (``None`` where a width has none)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    widths = ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF), (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2 ** 64 - 1))
+    if v < 0:
+        widths = ((0xD0, ">b", -2 ** 7), (0xD1, ">h", -2 ** 15), (0xD2, ">i", -2 ** 31), (0xD3, ">q", -2 ** 63))
+    for code, fmt, lim in widths:
+        if (v <= lim) if v >= 0 else (v >= lim):
+            out.append(code)
+            out += struct.pack(fmt, v)
+            return
+    raise ValueError(f"msgpack: int {v} out of range")
+
+
+def _pack(out: bytearray, obj) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _head(out, len(b), 0xA0, 0x1F, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(obj, (bytes, bytearray)):
+        _head(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 0x0F, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 0x0F, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise ValueError("msgpack: object arrays are not supported")
+        payload = packb([list(obj.shape), obj.dtype.name, obj.tobytes("C")])
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out.append(0xD4 + n.bit_length() - 1)
+        else:
+            _head(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode dicts, lists, scalars, strings, bytes and numpy arrays (a flax
+    checkpoint)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)

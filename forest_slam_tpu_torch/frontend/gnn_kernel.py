@@ -26,17 +26,21 @@ LN_EPS = 1e-6  # flax.linen.LayerNorm default
 _BF = torch.bfloat16
 
 
-def split_layer_params(lp: dict, num_heads: int, device="cpu") -> tuple:
-    """GnnLayer parameter dict of numpy arrays (the Flax subtree
-    {attn: {q, k, v, merge}, mlp0, ln, mlp1}) -> kernel-layout tuple."""
-
-    def bf(a):
-        return torch.as_tensor(np.array(a, np.float32)).to(device=device, dtype=_BF).contiguous()
+def split_layer_params(lp: dict, num_heads: int, device=None) -> tuple:
+    """GnnLayer parameters in the Flax subtree's layout ({attn: {q, k, v,
+    merge}, mlp0, ln, mlp1}, leaves numpy arrays or float32 tensors) ->
+    kernel-layout tuple, on ``device`` (default: the tensors' own, the CPU
+    for numpy). Differentiable in tensor leaves: the trainer's graph runs
+    through it to the float32 masters."""
 
     def f32(a):
-        return torch.as_tensor(np.array(a, np.float32)).to(device=device).contiguous()
+        t = a.float() if isinstance(a, torch.Tensor) else torch.as_tensor(np.array(a, np.float32))
+        return t if device is None else t.to(device)
 
-    D = np.asarray(lp["attn"]["q"]["kernel"]).shape[0]
+    def bf(a):
+        return f32(a).to(_BF)
+
+    D = lp["attn"]["q"]["kernel"].shape[0]
     dh = D // num_heads
 
     def qkv(name):
@@ -52,8 +56,8 @@ def split_layer_params(lp: dict, num_heads: int, device="cpu") -> tuple:
     w0 = bf(lp["mlp0"]["kernel"])  # (2D, 2D)
     w0a, w0b = w0[:D].contiguous(), w0[D:].contiguous()
     b0 = bf(lp["mlp0"]["bias"]).reshape(1, 2 * D)
-    lns = f32(lp["ln"]["scale"]).reshape(1, 2 * D)
-    lnb = f32(lp["ln"]["bias"]).reshape(1, 2 * D)
+    lns = f32(lp["ln"]["scale"]).reshape(1, 2 * D).contiguous()
+    lnb = f32(lp["ln"]["bias"]).reshape(1, 2 * D).contiguous()
     w1 = bf(lp["mlp1"]["kernel"])  # (2D, D)
     b1 = bf(lp["mlp1"]["bias"]).reshape(1, D)
     return (wq, bq, wk, bk, wv, bv, wm, bm, w0a, w0b, b0, lns, lnb, w1, b1)
@@ -102,7 +106,12 @@ def gnn_layer_plain(x, src, src_mask, weights: tuple, num_heads: int):
 def gnn_layer(x, src, src_mask, weights: tuple, num_heads: int):
     """One GNN layer on (N, K, D) bf16 queries and (N, S, D) bf16 sources
     with an (N, S) bool source mask: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. The kernel has no backward, so under
+    autograd with an input or weight that requires grad it raises, on every
+    device (the trainer takes the unfused layer)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, src, *weights)):
+        raise RuntimeError("gnn_layer (the fused GNN layer kernel) has no backward: run it under torch.no_grad, "
+                           "or differentiate the unfused layer (gnn_impl='xla')")
     if x.device.type == "cpu":
         return gnn_layer_plain(x, src, src_mask, weights, num_heads)
     if x.dim() != 3 or src.dim() != 3 or x.shape[0] != src.shape[0] or x.shape[2] != src.shape[2]:

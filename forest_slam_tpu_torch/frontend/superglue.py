@@ -1,14 +1,20 @@
-"""SuperGlue-style attentional graph matcher for inference (port of
-frontend/superglue.py and the fused forward of frontend/pallas_gnn.py).
+"""SuperGlue-style attentional graph matcher (port of frontend/superglue.py
+and the fused forward of frontend/pallas_gnn.py).
 
 Keypoint-position encoder, 2 x gnn_layers alternating self/cross GNN layers,
 final projection, and Sinkhorn with a dustbin decoded into the ``matches0`` /
-``matching_scores0`` contract. Both keypoint sets are fixed-size masked
-tensors. A GNN layer runs either whole in the fused kernel's numerics
+``matching_scores0`` contract, or, with ``return_couplings=True`` (training),
+the log-domain Sinkhorn's log-couplings. Both keypoint sets are fixed-size
+masked tensors. A GNN layer runs either whole in the fused kernel's numerics
 (``gnn_impl="auto"``/``"plain"``: f32 softmax, bf16 probabilities) or as the
-Flax module's unfused per-op layer (``gnn_impl="xla"``: bf16 Dense
-projections, the masked attention of ``attention_impl``, the merge, the MLP
-with Flax's LayerNorm, the residual).
+Flax module's unfused per-op layer (``gnn_impl="xla"``, and always under
+``return_couplings``: bf16 Dense projections, the masked attention of
+``attention_impl``, the merge, the MLP with Flax's LayerNorm, the residual).
+
+Every weight is a float32 parameter cast to bf16 where Flax casts it: the
+GNN layers hold the Flax subtree's Dense and LayerNorm parameters
+(``params.Dense``, ``params.LayerNorm``) and derive the kernel-layout bf16
+tuple from them once per parameter version outside autograd.
 """
 
 from __future__ import annotations
@@ -19,7 +25,15 @@ import torch
 from torch import nn
 
 from forest_slam_tpu_torch.frontend.attention_kernel import masked_attention, masked_attention_plain
-from forest_slam_tpu_torch.frontend.gnn_kernel import LN_EPS, _bf, gnn_layer, gnn_layer_plain, project_heads
+from forest_slam_tpu_torch.frontend.gnn_kernel import (
+    LN_EPS,
+    _bf,
+    gnn_layer,
+    gnn_layer_plain,
+    project_heads,
+    split_layer_params,
+)
+from forest_slam_tpu_torch.frontend.params import Dense, LayerNorm, cached_copy
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import (
     sinkhorn_decode,
     sinkhorn_decode_plain,
@@ -43,7 +57,7 @@ class SuperGlueConfig(NamedTuple):
     # attention of the unfused layer: "auto" the differentiable attention
     # Function (the kernel for CUDA tensors), "plain" its plain version on
     # any device, "xla" the dense einsum + softmax in softmax_dtype
-    # (bench.py --sg-attention xla; training's path)
+    # (bench.py --sg-attention xla); training takes the one configured
     attention_impl: str = "auto"
     softmax_dtype: str = "float32"  # or "bfloat16"
 
@@ -131,24 +145,34 @@ def gnn_layer_unfused(x, src, src_mask, weights: tuple, num_heads: int, attentio
 
 
 class GnnLayer(nn.Module):
-    """One self or cross layer; holds the per-head split weights of
-    gnn_kernel.split_layer_params as buffers (one copy, used by the fused
-    kernel, its plain version and the unfused layer alike)."""
+    """One self or cross layer. Its float32 parameters are the Flax
+    subtree's, one to one (``attn.{q,k,v,merge}``, ``mlp0``, ``ln``,
+    ``mlp1``); :meth:`weights` derives gnn_kernel.split_layer_params' bf16
+    tuple from them, used by the fused kernel, its plain version and the
+    unfused layer alike."""
 
-    _NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wm", "bm", "w0a", "w0b", "b0", "lns", "lnb", "w1", "b1")
-
-    def __init__(self, weights: tuple, cfg: SuperGlueConfig):
+    def __init__(self, cfg: SuperGlueConfig):
         super().__init__()
-        for name, w in zip(self._NAMES, weights):
-            self.register_buffer(name, w)
+        D = cfg.descriptor_dim
+        self.attn = nn.ModuleDict({n: Dense(D, D) for n in ("q", "k", "v", "merge")})
+        self.mlp0 = Dense(2 * D, 2 * D)
+        self.ln = LayerNorm(2 * D)
+        self.mlp1 = Dense(2 * D, D)
         self.num_heads = cfg.num_heads
         self.cfg = cfg
 
-    def weights(self) -> tuple:
-        return tuple(getattr(self, n) for n in self._NAMES)
+    def flax_params(self) -> dict:
+        """The parameters as the Flax subtree's nested dict of tensors."""
+        def tree(m):
+            return {n: p for n, p in m.named_parameters(recurse=False)} or {n: tree(c) for n, c in m.named_children()}
 
-    def forward(self, x, src, src_mask):
-        impl = self.cfg.gnn_impl
+        return tree(self)
+
+    def weights(self) -> tuple:
+        return cached_copy(self, lambda: split_layer_params(self.flax_params(), self.num_heads))
+
+    def forward(self, x, src, src_mask, unfused: bool = False):
+        impl = "xla" if unfused else self.cfg.gnn_impl
         if impl == "xla":
             return gnn_layer_unfused(x, src, src_mask, self.weights(), self.num_heads, self.cfg.attention_impl,
                                      self.cfg.softmax_dtype)
@@ -228,17 +252,22 @@ def match_decode(scores, valid0, valid1, alpha, iters: int, threshold: float, im
 
 
 class SuperGlue(nn.Module):
-    """Match two fixed-size keypoint sets (inference)."""
+    """Match two fixed-size keypoint sets."""
 
-    def __init__(self, cfg: SuperGlueConfig, layers: dict):
+    def __init__(self, cfg: SuperGlueConfig):
         super().__init__()
         self.cfg = cfg
         self.kenc = KeypointEncoder(cfg)
-        self.layers = nn.ModuleDict(layers)  # "self_i" / "cross_i" -> GnnLayer
+        self.layers = nn.ModuleDict({f"{kind}_{i}": GnnLayer(cfg) for i in range(cfg.gnn_layers)
+                                     for kind in ("self", "cross")})
         self.final_proj = nn.Linear(cfg.descriptor_dim, cfg.descriptor_dim)
-        self.register_buffer("bin_score", torch.ones(()))
+        self.bin_score = nn.Parameter(torch.ones(()))
 
-    def forward(self, xy0, score0, desc0, valid0, xy1, score1, desc1, valid1, image_shape) -> MatchResult:
+    def forward(self, xy0, score0, desc0, valid0, xy1, score1, desc1, valid1, image_shape,
+                return_couplings: bool = False):
+        """MatchResult, or with ``return_couplings`` the (B, K0+1, K1+1)
+        log-couplings of the log-domain Sinkhorn, through the unfused GNN
+        layers (superglue.py:327-345: training takes the Flax module)."""
         cfg = self.cfg
         H, W = image_shape
         scale = torch.tensor([W, H], dtype=torch.float32, device=xy0.device)
@@ -253,16 +282,18 @@ class SuperGlue(nn.Module):
         for i in range(cfg.gnn_layers):
             xs = torch.cat([x0, x1]).contiguous()
             vs = torch.cat([valid0, valid1])
-            xs = self.layers[f"self_{i}"](xs, xs, vs)
+            xs = self.layers[f"self_{i}"](xs, xs, vs, return_couplings)
             x0, x1 = xs[:B], xs[B:]
             xq = torch.cat([x0, x1]).contiguous()
             xsrc = torch.cat([x1, x0]).contiguous()
             vsrc = torch.cat([valid1, valid0])
-            xc = self.layers[f"cross_{i}"](xq, xsrc, vsrc)
+            xc = self.layers[f"cross_{i}"](xq, xsrc, vsrc, return_couplings)
             x0, x1 = xc[:B], xc[B:]
         f0 = _dense(x0, self.final_proj).float()
         f1 = _dense(x1, self.final_proj).float()
         scores = (f0 @ f1.transpose(1, 2)) / cfg.descriptor_dim ** 0.25
+        if return_couplings:
+            return log_sinkhorn(scores, valid0, valid1, self.bin_score, cfg.sinkhorn_iterations)
         return match_decode(
             scores.contiguous(), valid0, valid1, self.bin_score, cfg.sinkhorn_iterations,
             cfg.match_threshold, impl=cfg.sinkhorn_impl,

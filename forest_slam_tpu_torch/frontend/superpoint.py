@@ -6,9 +6,11 @@ detector head (8x8 cells + dustbin) and a 256-d descriptor head. Keypoint
 selection is NMS pooled per 4x4 block (the select kernel, ``select_kernel.py``)
 + exact top-k into fixed ``max_keypoints`` slots with a validity mask, then
 bilinear descriptor sampling on the coarse grid. Images
-are (B, H, W) in [0, 1] for the network; convolutions run in ``cfg.dtype``
-with each conv's bias added after its output is rounded, as flax.linen.Conv
-does.
+are (B, H, W) in [0, 1] for the network. The convolutions keep float32
+master weights and run in ``cfg.dtype``: kernel and bias cast to it, the
+bias added after the output is rounded, as flax.linen.Conv does. The cast
+copies are made once per parameter version outside autograd
+(``params.cached_copy``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from forest_slam_tpu_torch.frontend.fast import top_k
+from forest_slam_tpu_torch.frontend.params import cached_copy
 from forest_slam_tpu_torch.frontend.select_kernel import BLOCK, BORDER, nms_block_max, nms_block_max_plain, nms_kept_plain
 from forest_slam_tpu_torch.utils.filters import conv2d_separable
 
@@ -78,19 +81,23 @@ class SuperPointNet(nn.Module):
             "desc_conv": (c4, 256), "desc_out": (256, cfg.descriptor_dim),
         }
         self.convs = nn.ModuleDict({
-            name: nn.Conv2d(i, o, 1 if name.endswith("_out") else 3, dtype=cfg.dtype)
-            for name, (i, o) in io.items()
+            name: nn.Conv2d(i, o, 1 if name.endswith("_out") else 3) for name, (i, o) in io.items()
         })
 
-    def _conv(self, name, x):
-        conv = self.convs[name]
-        pad = conv.kernel_size[0] // 2
-        y = F.conv2d(x, conv.weight, None, padding=pad)
-        return y + conv.bias[None, :, None, None]
+    def conv_weights(self) -> dict:
+        """name -> (kernel, bias) in ``cfg.dtype``."""
+        dt = self.cfg.dtype
+        return cached_copy(self, lambda: {n: (c.weight.to(dt), c.bias.to(dt)) for n, c in self.convs.items()})
 
     def forward(self, image: torch.Tensor) -> SuperPointRaw:
         cfg = self.cfg
         s = cfg.stem_stride
+        weights = self.conv_weights()
+
+        def conv(name, x):
+            w, b = weights[name]
+            return F.conv2d(x, w, None, padding=w.shape[-1] // 2) + b[None, :, None, None]
+
         B, H, W = image.shape
         x = image.to(cfg.dtype)
         if s > 1:  # space-to-depth, channel = dy * s + dx
@@ -101,15 +108,15 @@ class SuperPointNet(nn.Module):
         n_pools = 3 - {1: 0, 2: 1, 4: 2, 8: 3}[s]
         for blk in range(1, 5):
             for i in range(2):
-                x = torch.relu(self._conv(f"enc{blk}_{i}", x))
+                x = torch.relu(conv(f"enc{blk}_{i}", x))
             if blk <= n_pools:
                 x = F.max_pool2d(x, 2, 2)
-        det = torch.relu(self._conv("det_conv", x))
-        logits = self._conv("det_out", det).float()  # (B, 65, Hc, Wc)
+        det = torch.relu(conv("det_conv", x))
+        logits = conv("det_out", det).float()  # (B, 65, Hc, Wc)
         probs = torch.softmax(logits, dim=1)[:, :64]
         heat = F.pixel_shuffle(probs, 8)[:, 0]  # depth-to-space
-        dsc = torch.relu(self._conv("desc_conv", x))
-        dsc = self._conv("desc_out", dsc).float()
+        dsc = torch.relu(conv("desc_conv", x))
+        dsc = conv("desc_out", dsc).float()
         dsc = dsc / torch.clamp(torch.linalg.vector_norm(dsc, dim=1, keepdim=True), min=1e-8)
         return SuperPointRaw(
             heat=heat,

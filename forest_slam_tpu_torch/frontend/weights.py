@@ -1,10 +1,14 @@
-"""Load the repository's flax checkpoints into the port's modules (port of
-frontend/weights.py).
+"""The repository's flax checkpoints and the port's modules, both ways
+(port of frontend/weights.py).
 
 Checkpoints under ``weights/`` are flax msgpack files: either
 ``{"__meta__": {...}, "params": tree}`` or a bare tree (the training
 layout). ``tree`` holds ``superpoint`` and ``superglue`` subtrees of numpy
 arrays, with the SuperPoint network either bare or nested under ``net``.
+:func:`params_from_jax` loads a tree into float32 parameters;
+:func:`params_to_jax` gives the tree back (bare SuperPoint, the trainer's
+layout) and :func:`save_params` writes it as ``flax.serialization.to_bytes``
+does.
 """
 
 from __future__ import annotations
@@ -15,9 +19,8 @@ import numpy as np
 import torch
 
 from forest_slam_tpu_torch.frontend import _msgpack
-from forest_slam_tpu_torch.frontend.gnn_kernel import split_layer_params
 from forest_slam_tpu_torch.frontend.learned import LearnedFrontend, LearnedFrontendConfig
-from forest_slam_tpu_torch.frontend.superglue import GnnLayer, SuperGlue, SuperGlueConfig
+from forest_slam_tpu_torch.frontend.superglue import SuperGlue, SuperGlueConfig
 from forest_slam_tpu_torch.frontend.superpoint import _CONVS, SuperPointConfig, SuperPointNet
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights")
@@ -38,43 +41,60 @@ def read_checkpoint(path: str) -> tuple[dict, dict]:
     return {}, state
 
 
-def _t(a, dtype=torch.float32):
-    return torch.as_tensor(np.array(a, np.float32)).to(dtype)
+def _copy(param: torch.Tensor, a, name: str) -> None:
+    """param <- the float32 array ``a``, whose shape must be param's."""
+    t = torch.as_tensor(np.array(a, np.float32))
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"checkpoint {name}: shape {tuple(t.shape)}, the module's {tuple(param.shape)}")
+    param.copy_(t)
 
 
-def superpoint_from_jax(sp_params: dict, cfg: SuperPointConfig) -> SuperPointNet:
-    """SuperPoint params (bare or nested under "net") -> SuperPointNet.
-    Conv kernels HWIO -> OIHW."""
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.array(t.detach().float().cpu().numpy(), order="C")
+
+
+def _linears(sg: SuperGlue) -> dict:
+    """Flax Dense name -> the port's nn.Linear, in Flax's order."""
+    return {**{f"kenc.mlp_{j}": lin for j, lin in enumerate(sg.kenc.mlp)}, "kenc.mlp_out": sg.kenc.mlp_out,
+            "final_proj": sg.final_proj}
+
+
+def superpoint_from_jax(sp_params: dict, cfg: SuperPointConfig, net: SuperPointNet | None = None) -> SuperPointNet:
+    """SuperPoint params (bare or nested under "net") -> SuperPointNet (a
+    new one, or ``net`` loaded in place). Conv kernels HWIO -> OIHW."""
     p = sp_params.get("net", sp_params)
-    net = SuperPointNet(cfg)
+    net = SuperPointNet(cfg) if net is None else net
     with torch.no_grad():
         for name in _CONVS:
             conv = net.convs[name]
-            conv.weight.copy_(_t(p[name]["kernel"]).permute(3, 2, 0, 1))
-            conv.bias.copy_(_t(p[name]["bias"]))
+            _copy(conv.weight, np.transpose(np.asarray(p[name]["kernel"], np.float32), (3, 2, 0, 1)), name)
+            _copy(conv.bias, p[name]["bias"], name)
     return net
 
 
-def superglue_from_jax(sg_params: dict, cfg: SuperGlueConfig) -> SuperGlue:
-    """SuperGlue params -> SuperGlue. Dense (in, out) -> Linear.weight
-    (out, in); GNN layers pre-split per head (split_layer_params)."""
-    layers = {}
-    for i in range(cfg.gnn_layers):
-        for kind in ("self", "cross"):
-            name = f"{kind}_{i}"
-            layers[name] = GnnLayer(split_layer_params(sg_params[name], cfg.num_heads), cfg)
-    sg = SuperGlue(cfg, layers)
+def superglue_from_jax(sg_params: dict, cfg: SuperGlueConfig, sg: SuperGlue | None = None) -> SuperGlue:
+    """SuperGlue params -> SuperGlue (a new one, or ``sg`` loaded in place).
+    Dense (in, out) -> Linear.weight (out, in); the GNN layers' parameters
+    are the Flax subtree's as they are."""
+    sg = SuperGlue(cfg) if sg is None else sg
 
-    def dense(lin, dp):
-        lin.weight.copy_(_t(dp["kernel"]).t())
-        lin.bias.copy_(_t(dp["bias"]))
+    def load(params: dict, tree: dict, path: str):
+        for k, v in params.items():
+            if isinstance(v, dict):
+                load(v, tree[k], f"{path}.{k}")
+            else:
+                _copy(v, tree[k], f"{path}.{k}")
 
     with torch.no_grad():
-        for j, lin in enumerate(sg.kenc.mlp):
-            dense(lin, sg_params["kenc"][f"mlp_{j}"])
-        dense(sg.kenc.mlp_out, sg_params["kenc"]["mlp_out"])
-        dense(sg.final_proj, sg_params["final_proj"])
-        sg.bin_score.copy_(_t(sg_params["bin_score"]))
+        for name, layer in sg.layers.items():
+            load(layer.flax_params(), sg_params[name], name)
+        for name, lin in _linears(sg).items():
+            dp = sg_params
+            for part in name.split("."):
+                dp = dp[part]
+            _copy(lin.weight, np.asarray(dp["kernel"], np.float32).T, name)
+            _copy(lin.bias, dp["bias"], name)
+        _copy(sg.bin_score, sg_params["bin_score"], "bin_score")
     return sg
 
 
@@ -84,6 +104,47 @@ def params_from_jax(tree: dict, cfg: LearnedFrontendConfig) -> LearnedFrontend:
     sp = superpoint_from_jax(tree["superpoint"]["params"], cfg.superpoint)
     sg = superglue_from_jax(tree["superglue"]["params"], cfg.superglue)
     return LearnedFrontend(cfg, sp, sg)
+
+
+def superpoint_to_jax(net: SuperPointNet) -> dict:
+    """SuperPointNet -> bare Flax params {conv: {kernel HWIO, bias}}."""
+    return {name: {"kernel": _np(net.convs[name].weight.permute(2, 3, 1, 0)), "bias": _np(net.convs[name].bias)}
+            for name in _CONVS}
+
+
+def superglue_to_jax(sg: SuperGlue) -> dict:
+    """SuperGlue -> Flax params, keys in the order Flax creates them."""
+    lin = _linears(sg)
+
+    def dense(name):
+        return {"kernel": _np(lin[name].weight.t()), "bias": _np(lin[name].bias)}
+
+    def tree(params):
+        return {k: tree(v) if isinstance(v, dict) else _np(v) for k, v in params.items()}
+
+    out = {"kenc": {name.split(".")[1]: dense(name) for name in lin if name.startswith("kenc.")}}
+    out.update({name: tree(layer.flax_params()) for name, layer in sg.layers.items()})
+    out["final_proj"] = dense("final_proj")
+    out["bin_score"] = _np(sg.bin_score)
+    return out
+
+
+def params_to_jax(fe: LearnedFrontend) -> dict:
+    """The inverse of :func:`params_from_jax`: the JAX parameter tree of
+    numpy float32 arrays, SuperPoint bare (the trainer's layout)."""
+    return {"superpoint": {"params": superpoint_to_jax(fe.superpoint)},
+            "superglue": {"params": superglue_to_jax(fe.superglue)}}
+
+
+def save_params(params: dict, path: str, meta: dict | None = None) -> None:
+    """Write a checkpoint as frontend/weights.py:save_params does:
+    ``{"__meta__": meta, "params": params}``, or the bare tree without
+    ``meta``; ``meta`` holds Python ints, floats and strings."""
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload = params if meta is None else {"__meta__": meta, "params": params}
+    with open(path, "wb") as f:
+        f.write(_msgpack.packb(payload))
 
 
 def load_learned_frontend(path: str = FLAGSHIP_PATH, image_shape=(600, 960), max_keypoints: int = 1024,

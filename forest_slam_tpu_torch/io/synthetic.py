@@ -76,10 +76,13 @@ def make_corridor_world(seed: int = 0, textures=None, half_width: float = 4.0, g
                         wall_height: float = 6.0, texture_px: int = 1024, texture_scale: float = 0.05,
                         device="cuda", draws: str = "numpy") -> CorridorWorld:
     """Ground plane + left/right walls; textures from :func:`corridor_textures`,
-    or the (3, TH, TW) arrays given."""
+    or the (3, TH, TW) arrays or tensor given."""
     if textures is None:
         textures = corridor_textures(seed, texture_px, draws)
-    tex = torch.as_tensor(np.asarray(textures, np.float32), device=device)
+    if isinstance(textures, torch.Tensor):
+        tex = textures.to(device=device, dtype=torch.float32)
+    else:
+        tex = torch.as_tensor(np.asarray(textures, np.float32), device=device)
     v = lambda *a: torch.tensor(a, dtype=torch.float32, device=device)
     planes = (
         Plane(origin=v(0.0, ground_y, 0.0), e1=v(1.0, 0.0, 0.0), e2=v(0.0, 0.0, 1.0)),

@@ -103,7 +103,8 @@ def main() -> int:
     fe = load_learned_frontend(os.path.join(REPO, "weights", os.path.basename(FLAGSHIP_PATH)), (smoke.H, smoke.W),
                                smoke.K, device=dev)
     layer = fe.superglue.layers["cross_0"]
-    ws, heads = layer.weights(), layer.num_heads
+    with torch.no_grad():  # the cached bf16 copies, as inference takes them
+        ws, heads = layer.weights(), layer.num_heads
 
     out = {"label": os.path.relpath(root), "device": smoke.nvidia_smi_line(), "kernels": {}}
 

@@ -2,7 +2,9 @@
 
 Same numpy inputs on both sides; JAX runs with 64-bit enabled inside each
 test. Tolerance 1e-12 absolute: the formulas are the same, so only float64
-rounding of differently ordered sums may differ.
+rounding of differently ordered sums may differ. ``remap_bilinear`` runs in
+float32 on both sides (its image is cast to float32): 1e-4 on 0-255
+values, samples outside the image 0 on both.
 """
 
 import numpy as np
@@ -98,3 +100,29 @@ def test_stereo_rig_baseline():
     _, tc = _cams(np.zeros(5))
     rig = tcam.StereoRig(tc, tc, _t(T))
     assert float(rig.baseline) == 0.25
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-5, 0.0])
+def test_so3_exp(rng, scale):
+    w = rng.normal(size=(16, 3)) * scale  # scale 1e-5 and 0 take the Taylor branch
+    with enable_x64():
+        ref = np.asarray(jlie.so3_exp(jnp.asarray(w)))
+    np.testing.assert_allclose(tlie.so3_exp(_t(w)).numpy(), ref, atol=TOL)
+
+
+def test_remap_bilinear(rng):
+    img = rng.uniform(0, 255, size=(20, 30)).astype(np.float32)
+    src = rng.uniform([-3, -3], [33, 23], size=(12, 17, 2)).astype(np.float32)  # some samples outside
+    src[0, :4] = [[0, 0], [29, 19], [29.5, 10], [-0.5, 5]]  # corners and half-outside edges
+    ref = np.asarray(jcam.remap_bilinear(jnp.asarray(img), jnp.asarray(src)))
+    got = tcam.remap_bilinear(torch.as_tensor(img), torch.as_tensor(src)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+    assert (ref == 0).any()
+    # batched: each image with its own map, and one map broadcast over images
+    imgs = np.stack([img, img[::-1].copy()])
+    maps = np.stack([src, src[::-1].copy()])
+    ref2 = np.asarray(jcam.remap_bilinear(jnp.asarray(imgs[1]), jnp.asarray(maps[1])))
+    np.testing.assert_allclose(tcam.remap_bilinear(torch.as_tensor(imgs), torch.as_tensor(maps))[1].numpy(), ref2,
+                               atol=1e-4)
+    np.testing.assert_allclose(tcam.remap_bilinear(torch.as_tensor(imgs), torch.as_tensor(src))[0].numpy(), ref,
+                               atol=1e-4)

@@ -12,7 +12,10 @@ indices (it sums Harris in the plain version's order, so it is exact), one
 level a call or every level of a batch in one launch; the
 select kernel only compares, so it is bit-exact; the attention kernel's bf16
 output within 2^-7 of its largest entry, mean 1e-3, as
-tests/test_torch_attention.py holds the plain version to the reference.
+tests/test_torch_attention.py holds the plain version to the reference; its
+gradients under autograd (a recompute of the plain version) equal the plain
+version's autograd bit for bit. One training step of the full-width recipe
+on the card agrees with the CPU's within chip_smoke.TRAIN_AGREEMENT.
 """
 
 import pytest
@@ -590,3 +593,75 @@ def test_p3p_ransac_card_equals_cpu(cuda):
     torch.testing.assert_close(card.t.cpu(), cpu.t, rtol=0, atol=1e-3)
     assert (card.n_inliers.cpu() - cpu.n_inliers).abs().max() <= 3
     assert (cpu.t - torch.as_tensor(T[:3, 3], dtype=torch.float32)).abs().max() < 0.05
+
+
+def test_attention_grads_card_match_plain_autograd(cuda):
+    """The attention Function under autograd on the card, at the training
+    step's K = S = 48 with masked sources and a fully masked sequence: its
+    forward is one kernel launch (bf16 bound as above), its backward
+    launches nothing and equals the plain version's autograd bit for bit
+    (it is that recompute)."""
+    dev, g = cuda
+    B, h, K_, dh = 6, 4, 48, 64
+    scale = 1.0 / dh ** 0.5
+    leaf = lambda s: (torch.randn((B, h, K_, dh), generator=g, device=dev) * s).to(torch.bfloat16).requires_grad_()
+    q, k, v = leaf(2.0), leaf(2.0), leaf(1.0)
+    mask = torch.rand((B, K_), generator=g, device=dev) < 0.7
+    mask[-1] = False
+    gout = torch.randn((B, h, K_, dh), generator=g, device=dev).to(torch.bfloat16)
+    n = attention_forward.launches
+    out = masked_attention(q, k, v, mask, scale)
+    assert attention_forward.launches == n + 1
+    grads = torch.autograd.grad(out, (q, k, v), gout)
+    assert attention_forward.launches == n + 1
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref = masked_attention_plain(q2, k2, v2, mask, scale)
+    ref_grads = torch.autograd.grad(ref, (q2, k2, v2), gout)
+    top = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0 ** -7 * top
+    for got, want in zip(grads, ref_grads):
+        assert torch.isfinite(got.float()).all() and got.float().abs().max() > 0
+        assert torch.equal(got, want)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One training step of the full-width recipe (stem 2, 9 layer pairs,
+    K = 48) at 4 pairs on the card against the CPU, same batch and
+    parameters, within chip_smoke.TRAIN_AGREEMENT; then a train_step on the
+    card launches attention 18 times and no other kernel, and moves every
+    parameter."""
+    import copy
+
+    from forest_slam_tpu_torch.train.data import TrainingBatch, make_corridor_pool, make_training_batch
+    from forest_slam_tpu_torch.train.trainer import create_train_state, train_step
+
+    dev, g = cuda
+    cs = _chip_smoke()
+    cfg = cs.train_config()._replace(batch_size=4)
+    state = create_train_state(cfg, seed=0, device=dev)
+    pool = make_corridor_pool(g, 4, cfg.height, cfg.width, cfg.max_corners, chunk=4, device=dev)
+    batch = make_training_batch(g, 4, cfg.height, cfg.width, cfg.max_corners, 0.4, 0.3, pool, dev)
+    card = cs.step_gradients(state.frontend, batch, cfg)
+    cpu = cs.step_gradients(copy.deepcopy(state.frontend).cpu(), TrainingBatch(*(t.cpu() for t in batch)), cfg)
+    agree = cs.step_agreement(cpu, card)
+    assert agree["ok"], agree
+    before = [p.detach().clone() for p in state.frontend.parameters()]
+    wrappers = [attention_forward, gnn_layer, sinkhorn_decode, nms_block_max, detect_pooled, sparse_cost_rows,
+                refine_cost_volume]
+    counts = [w.launches for w in wrappers]
+    state, metrics = train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == [18, 0, 0, 0, 0, 0, 0]
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert all(not torch.equal(a, p) for a, p in zip(before, state.frontend.parameters()))

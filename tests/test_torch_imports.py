@@ -43,9 +43,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 37
+    assert n_modules >= 43
     names = out.stdout.splitlines()[1].split()
-    for mod in ("frontend.select_kernel", "frontend.attention_kernel", "frontend.learned", "frontend.superglue"):
+    for mod in ("frontend.select_kernel", "frontend.attention_kernel", "frontend.learned", "frontend.superglue",
+                "frontend.params", "train", "train.losses", "train.data", "train.trainer", "train.__main__"):
         assert "forest_slam_tpu_torch." + mod in names
 
 

@@ -14,6 +14,16 @@
 - The whole matcher forward (2 of the flagship's 9 layer pairs, K=128)
   against ``superglue_forward_fused(interpret=True)``: at least 97% of
   ``matches0`` equal (bf16 roundings may flip near-tie assignments).
+- ``return_couplings=True`` (training's output: the unfused layers and the
+  log-domain Sinkhorn) against ``SuperGlue.apply(return_couplings=True)``
+  with 2 of the flagship's layer pairs at K=48 on both attention routes:
+  log-couplings within 0.1 (mean 0.01) where both keypoints are valid,
+  values up to 13 in size; the best column of 97% of the rows that have a
+  true match the same.
+- The fused layer under autograd: it has no backward, so with a weight
+  that requires grad it raises, on the CPU too (its plain version there);
+  the unfused layer carries gradients to the float32 masters. The bf16
+  weight copies are made once per parameter version outside autograd.
 """
 
 import numpy as np
@@ -163,3 +173,78 @@ def test_superglue_forward_matches_fused_interpret(sg_params):
     assert (got.matches0.numpy() == jm).mean() >= 0.97
     ok = (got.matches0.numpy() == jm) & (jm >= 0)
     np.testing.assert_allclose(got.matching_scores0.numpy()[ok], np.asarray(ref.matching_scores0)[ok], atol=0.05)
+
+
+def _features(rng, B, K, H, W, like=None):
+    xy = rng.uniform([0, 0], [W, H], size=(B, K, 2)).astype(np.float32)
+    d = rng.normal(size=(B, K, 256)).astype(np.float32)
+    if like is not None:  # 30 true matches: the other set's descriptors, noise of norm 0.1
+        d[:, :30] = like[:, :30] + 0.1 * d[:, :30] / 16.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return [xy, np.ones((B, K), np.float32), d, rng.random((B, K)) < 0.8]
+
+
+@pytest.mark.parametrize("jax_impl, impl", [("xla", "xla"), ("fused_interpret", "auto")])
+def test_return_couplings_match_jax(sg_params, jax_impl, impl):
+    from forest_slam_tpu.frontend.superglue import SuperGlue as JSuperGlue
+
+    rng = np.random.default_rng(0)
+    B, Kc, H, W = 2, 48, 120, 160
+    f0 = _features(rng, B, Kc, H, W)
+    f1 = _features(rng, B, Kc, H, W, like=f0[2])
+    run = lambda *a: JSuperGlue(JSGConfig(gnn_layers=2, attention_impl=jax_impl)).apply(
+        {"params": sg_params}, *a, (H, W), return_couplings=True)
+    ref = np.asarray(jax.jit(run)(*map(jnp.asarray, f0 + f1)))
+    sg = superglue_from_jax(sg_params, SuperGlueConfig(gnn_layers=2, attention_impl=impl))
+    got = sg(*map(torch.as_tensor, f0 + f1), (H, W), return_couplings=True)
+    assert got.shape == (B, Kc + 1, Kc + 1) and got.requires_grad
+    got = got.detach().numpy()
+    both = (np.concatenate([f0[3], np.ones((B, 1), bool)], 1)[:, :, None]
+            & np.concatenate([f1[3], np.ones((B, 1), bool)], 1)[:, None, :])
+    err = np.abs(got - ref)[both]
+    assert err.max() <= 0.1 and err.mean() <= 0.01, (err.max(), err.mean())
+    np.testing.assert_array_equal(got[~both], ref[~both])  # the NEG-masked entries
+    rows = f0[3] & f1[3] & (np.arange(Kc) < 30)  # rows with a true match
+    assert (got[:, :-1, :-1].argmax(2) == ref[:, :-1, :-1].argmax(2))[rows].mean() >= 0.97
+
+
+def test_fused_layer_refuses_autograd(sg_params, rng):
+    sg = superglue_from_jax(sg_params, SuperGlueConfig(gnn_layers=1))
+    layer = sg.layers["self_0"]
+    x = torch.as_tensor(rng.normal(size=(2, 16, 256)).astype(np.float32)).to(torch.bfloat16)
+    mask = torch.as_tensor(rng.random((2, 16)) < 0.8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        layer(x, x, mask)  # gnn_impl "auto": on CPU tensors the plain version, under the same check
+    with pytest.raises(RuntimeError, match="no backward"):
+        gnn_layer(x, x, mask, layer.weights(), 4)
+    with torch.no_grad():
+        out = layer(x, x, mask)
+        assert torch.equal(out, gnn_layer_plain(x, x, mask, layer.weights(), 4))
+    y = layer(x, x, mask, unfused=True)
+    y.float().square().sum().backward()
+    for p in (layer.attn["q"].kernel, layer.attn["merge"].bias, layer.mlp0.kernel, layer.ln.scale, layer.mlp1.bias):
+        assert p.grad is not None and p.grad.abs().sum() > 0
+
+
+def test_weight_copies_made_once_per_parameter_version(sg_params):
+    from forest_slam_tpu_torch.frontend.superpoint import SuperPointConfig
+    from forest_slam_tpu_torch.frontend.weights import superpoint_from_jax
+
+    layer = superglue_from_jax(sg_params, SuperGlueConfig(gnn_layers=1)).layers["cross_0"]
+    with torch.no_grad():
+        a = layer.weights()
+        assert layer.weights() is a and not any(t.requires_grad for t in a)
+        layer.mlp1.bias.add_(1.0)
+        b = layer.weights()
+    assert b is not a
+    assert torch.equal(b[-1], layer.mlp1.bias.detach().to(torch.bfloat16).reshape(1, -1))
+    assert torch.equal(b[0], a[0])
+    fresh = layer.weights()  # grad mode, masters require grad: a new differentiable copy
+    assert fresh is not b and fresh[0].requires_grad
+    _, tree = read_checkpoint(FLAGSHIP_PATH)
+    net = superpoint_from_jax(tree["superpoint"]["params"], SuperPointConfig(stem_stride=4))
+    with torch.no_grad():
+        w = net.conv_weights()
+        assert net.conv_weights() is w and w["enc1_0"][0].dtype == torch.bfloat16
+        net.convs["det_out"].weight.mul_(2.0)
+        assert net.conv_weights() is not w

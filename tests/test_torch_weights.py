@@ -4,8 +4,9 @@ Every checkpoint under weights/ must decode leaf for leaf (``__meta__``
 included) exactly as ``flax.serialization.msgpack_restore`` decodes it, and
 ``params_from_jax`` must carry each flax leaf into the port's modules with
 only the documented layout changes (HWIO -> OIHW, (in, out) -> (out, in),
-per-head splits). Tolerance: exact (0) in float32; the bf16 GNN buffers
-must equal the bf16 rounding of the flax leaves.
+per-head splits). Tolerance: exact (0) in float32; the GNN layers' float32
+parameters are the flax leaves, and the bf16 kernel-layout weights derived
+from them must equal the bf16 rounding of the flax leaves.
 """
 
 import glob
@@ -92,13 +93,16 @@ def test_params_from_jax_matches_flax_tree():
     layer = fe.superglue.layers["cross_4"]
     lp = sg["cross_4"]
     D, h = 256, 4
-    wq = layer.wq.float().numpy()
-    np.testing.assert_array_equal(wq, bf(lp["attn"]["q"]["kernel"]).reshape(D, h, D // h).transpose(1, 0, 2))
-    np.testing.assert_array_equal(layer.wm.float().numpy().reshape(D, D), bf(lp["attn"]["merge"]["kernel"]))
+    np.testing.assert_array_equal(layer.attn["v"].kernel.detach().numpy(), lp["attn"]["v"]["kernel"])
+    np.testing.assert_array_equal(layer.ln.bias.detach().numpy(), lp["ln"]["bias"])
+    with torch.no_grad():
+        wq, _, _, _, _, _, wm, _, w0a, w0b, _, lns, _, _, _ = layer.weights()
+    np.testing.assert_array_equal(wq.float().numpy(), bf(lp["attn"]["q"]["kernel"]).reshape(D, h, D // h).transpose(1, 0, 2))
+    np.testing.assert_array_equal(wm.float().numpy().reshape(D, D), bf(lp["attn"]["merge"]["kernel"]))
     w0 = bf(lp["mlp0"]["kernel"])
-    np.testing.assert_array_equal(layer.w0a.float().numpy(), w0[:D])
-    np.testing.assert_array_equal(layer.w0b.float().numpy(), w0[D:])
-    np.testing.assert_array_equal(layer.lns.numpy()[0], lp["ln"]["scale"])
+    np.testing.assert_array_equal(w0a.float().numpy(), w0[:D])
+    np.testing.assert_array_equal(w0b.float().numpy(), w0[D:])
+    np.testing.assert_array_equal(lns.numpy()[0], lp["ln"]["scale"])
 
 
 def test_load_learned_frontend_reads_meta():
