@@ -45,20 +45,29 @@ Phases, each printing one line with its elapsed seconds:
    224x160, extracted at octaves (1.0, 1.7, 2.89), K=512, 512 hypotheses,
    refine radius 12, frame and pair batches of 24, held to 21/23 tracked and
    ATE below 0.05 m;
-8. the 962-pair workload of ``bench.py`` through
+8. dense stereo (``StereoConfig(dense_depth=True)``, the reference's
+   SGBM parity path, ``SgmConfig()``: D=96, block 7): the flagship learned
+   front end on the 31-pair clip with depth read from SGM maps, held to
+   90% tracked and ATE below 0.25 m, ``select``, ``gnn_layer``,
+   ``sinkhorn_decode`` and ``refine_cost`` launched and ``sparse_cost``
+   not; SGM ms a frame and pairs/s printed; then SGM on the card over the
+   OpenCV fixture ``tests/fixtures/sgm_cv2.npz`` (600x960, D=96) within
+   ``tests/test_stereo_disparity.py``'s bounds against cv2 and the rendered
+   ground truth, and equal to the port's CPU result on every pixel;
+9. the 962-pair workload of ``bench.py`` through
    ``forest_slam_tpu_torch.bench``: 64 unique 960x600 frames ping-ponged to
    963, frame and pair batches of 32 and 48; the learned front end (a
    fall-back to ORB fails the run) with a warm-up and three timed runs
    (three more when they spread by over 10%), then ORB with a warm-up and
    one timed run; each held to 90% of its pairs tracked and ATE below
    0.25 m, with pairs/s, ATE and RPE printed;
-9. the gate suite of ``bench.py`` (``forest_slam_tpu_torch.bench.run_gates``):
+10. the gate suite of ``bench.py`` (``forest_slam_tpu_torch.bench.run_gates``):
    each vo gate's clip rendered on the card, worst of seeds 0 and 1; the
    gates that pass in the JAX package's record (``BENCH_r05.json``) are held
    to ``bench.py``'s bounds, ``blur_wb_k10`` and ``plain_k20`` (which fail
    there too) are printed only; the plain gates print that they did not run
    where their checkpoint is absent;
-10. training (``python -m forest_slam_tpu_torch.train``'s recipe at full
+11. training (``python -m forest_slam_tpu_torch.train``'s recipe at full
    width: stem 2, 9 layer pairs, 16 pairs of 120x160, 48 corners; the
    corridor pool cut to 128 pairs, the run to 300 steps): one step on the
    card against the CPU's on the same batch and parameters (loss terms and
@@ -67,7 +76,18 @@ Phases, each printing one line with its elapsed seconds:
    0.8x the first tenth's), with the attention kernel launched 18 times a
    step and no other kernel; steps/s printed with the card's name and power
    limit; the trained weights written by ``save_params`` and read back by
-   ``load_learned_frontend`` unchanged.
+   ``load_learned_frontend`` unchanged;
+12. distillation (``python -m forest_slam_tpu_torch.train.distill``'s
+   round-5 recipe at full width: teacher
+   ``weights/learned_frontend_stem2_subpix_wide.msgpack``, a stem-4
+   student, batch 8 of 240x320, lr 1e-3, w_scale 2, w_blur 0.7, w_subpix
+   0.5; the pool cut to 64 frames of 600x960, the run to 300 steps): one
+   step on the card against the CPU's on the same batch, teacher and
+   student (``DISTILL_AGREEMENT``), then ``distill``, whose loss must fall
+   by the training phase's rule with no kernel launched; steps/s printed;
+   the checkpoint read back (the student equal, the teacher's SuperGlue
+   subtree byte-equal, stem 4) and loaded by ``load_learned_frontend``;
+   the distilled front end's tracking of the 31-pair clip printed, not held.
 
 The kernel checks also run the shapes the workload and the gates give the
 kernels: the sparse cost at 32 frames of K=1024 and of 512, the GNN layer at
@@ -726,6 +746,254 @@ def step_agreement(ref, got):
     return out
 
 
+# the distillation phase: python -m forest_slam_tpu_torch.train.distill's
+# round-5 recipe (BASELINE.md:543-546) at full width: the stem-2 wide-gap
+# subpix teacher into a stem-4 student, channels (64, 64, 128, 128), D=256,
+# batch 8 of 240x320, lr 1e-3, w_scale 2, w_blur 0.7, w_subpix 0.5, so every
+# term runs. Cut: the pool to 64 frames of 600x960 (of 256), the run to 300
+# steps (of 24,000). The history holds every tenth step (log_every 10, as
+# the reference's scan returns a chunk's last), and the loss rule reads it.
+DISTILL_STEPS = 300
+DISTILL_POOL = 64
+DISTILL_LOG_EVERY = 10
+# One step on the card against the CPU, same batch, teacher and student
+# (distill_setup's). Each bound is five times the larger of two readings on
+# that batch, rounded up to 1, 2 or 5 of its decade: the CPU's envelope, how
+# far the CPU's step moves when every student parameter moves by a relative
+# 1e-6 (det 1.1e-7, desc 2.0e-6, cos_kp 5.5e-5, subpix 2.7e-7, scale 1.2e-7,
+# blur 4.1e-6, loss 1.7e-6; gradient cosine 1 - 6.0e-6, rel-L2 0.0035, the
+# worst leaf 1 - 1.9e-5), and the card's own distance (det 1.1e-7, desc
+# 3.0e-6, cos_kp 1.7e-4, subpix 9.2e-5, scale 1.5e-6, blur 1.2e-6, loss
+# 1.1e-5; 1 - 2.3e-6, 0.0022, 1 - 4.8e-6); both from
+# scripts/train_grad_envelope.py --side distill on the H100's machine. The
+# card's subpix gap comes from the teacher's forward, which the envelope
+# never moves: the card's bf16 convolutions round 10% of the teacher's
+# logits the other way (by up to 4.0), which moves its in-cell centre of
+# mass by up to 0.13 px; the CPU student on the card teacher's outputs
+# carries 9.22e-5 of subpix's 9.25e-5, the student's own arithmetic 3.3e-7.
+# The cross-entropy terms hardly see it: a fresh student's cell
+# distribution is near uniform. No Sinkhorn runs here, so the step is far
+# less chaotic than training's.
+DISTILL_AGREEMENT = dict(det=1e-6, desc=2e-5, cos_kp=1e-3, subpix=5e-4, scale=1e-5, blur=5e-5, loss=1e-4,
+                         global_cos=0.99995, global_rel=0.02, leaf_min_cos=0.9999)
+
+
+def distill_config():
+    from forest_slam_tpu_torch.frontend.weights import PLAIN_WB_PATH
+    from forest_slam_tpu_torch.train.distill import DistillConfig
+
+    return DistillConfig(teacher_path=PLAIN_WB_PATH, stem_stride=4, height=240, width=320, batch_size=8,
+                         learning_rate=1e-3, pool_frames=DISTILL_POOL, w_scale=2.0, w_blur=0.7, w_subpix=0.5)
+
+
+def distill_setup(dev, cfg=None):
+    """The distillation phase's start: (cfg, load_teacher's (teacher, tree,
+    meta), a student from seed 0, the generator on ``dev`` and the host one,
+    both seeded 1, and the scene pool rendered from the first)."""
+    from forest_slam_tpu_torch.train.distill import create_student_state, load_teacher, make_scene_pool
+
+    cfg = cfg or distill_config()
+    teacher = load_teacher(cfg, dev)
+    state = create_student_state(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    host_gen = torch.Generator()
+    host_gen.manual_seed(1)
+    return cfg, teacher, state, gen, host_gen, make_scene_pool(gen, cfg, dev)
+
+
+def distill_gradients(student, teacher_out, inputs, cfg):
+    """One distillation step's metrics and the student's gradient, as
+    float64 numpy by parameter name, from the teacher's outputs
+    (``teacher_outputs``) and ``step_inputs``' (images, zoom, blurred)."""
+    from forest_slam_tpu_torch.train.distill import distill_loss
+
+    images, zoom, blurred = inputs
+    names, params = zip(*student.named_parameters())
+    total, m = distill_loss(student, teacher_out, images, cfg, zoom, blurred)
+    grads = torch.autograd.grad(total, params)
+    return ({k: float(v.detach()) for k, v in m.items()},
+            {n: g.detach().double().cpu().numpy().ravel() for n, g in zip(names, grads)})
+
+
+def distill_agreement(ref, got):
+    """Each metric's relative difference, the gradient's cosine and relative
+    L2, the least cosine of a leaf carrying more than 1e-3 of the gradient's
+    norm, and whether all are within DISTILL_AGREEMENT."""
+    (rm, rg), (gm, gg) = ref, got
+    cos = lambda a, b: float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-30))
+    rel = {k: abs(gm[k] - rm[k]) / max(abs(rm[k]), 1e-12) for k in rm}
+    a = np.concatenate(list(rg.values()))
+    g = np.concatenate([gg[n] for n in rg])
+    total = np.linalg.norm(a)
+    leaf_cos = {n: cos(rg[n], gg[n]) for n in rg if np.linalg.norm(rg[n]) >= 1e-3 * total}
+    worst = min(leaf_cos, key=leaf_cos.get)
+    out = dict(rel=rel, global_cos=cos(a, g), global_rel=float(np.linalg.norm(a - g) / total),
+               leaf_min_cos=leaf_cos[worst], leaf_worst=worst, leaves_checked=len(leaf_cos))
+    tol = DISTILL_AGREEMENT
+    out["ok"] = (all(rel[k] <= tol[k] for k in rel) and out["global_cos"] >= tol["global_cos"]
+                 and out["global_rel"] <= tol["global_rel"] and out["leaf_min_cos"] >= tol["leaf_min_cos"])
+    return out
+
+
+def same_tree(a, b) -> bool:
+    """Two parameter trees hold the same keys, dtypes, shapes and bytes."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def distill_phase(dev, wrappers, launches_by_path, smi, track_clip):
+    """The round-5 distillation recipe through ``distill``: one step agrees
+    with the CPU's, the loss falls with no kernel launched, and the
+    checkpoint reads back whole; ``track_clip(frontend)`` gives the
+    distilled front end's (tracked, pairs, ATE) on the 31-pair clip,
+    printed only."""
+    import copy
+    import tempfile
+
+    from forest_slam_tpu_torch.frontend.base import learned_frontend
+    from forest_slam_tpu_torch.frontend.weights import load_learned_frontend, read_checkpoint, superpoint_to_jax
+    from forest_slam_tpu_torch.train.distill import distill, save_distilled, step_inputs, teacher_outputs
+
+    failures = []
+    t0 = time.time()
+    cfg, (teacher, tree, meta), state, gen, host_gen, pool = distill_setup(dev)
+    torch.cuda.synchronize()
+    log(f"distill: teacher {os.path.basename(cfg.teacher_path)} (stem {teacher.cfg.stem_stride}) loaded and a "
+        f"{pool.shape[0]}-frame pool at {pool.shape[2]}x{pool.shape[1]} rendered on the card in {time.time() - t0:.2f} s")
+
+    # one step on the card against the CPU: same batch, teacher and student
+    inputs = step_inputs(gen, host_gen, cfg, pool)
+    t0 = time.time()
+    card = distill_gradients(state.student, teacher_outputs(teacher, inputs[0]), inputs, cfg)
+    t_card = time.time() - t0
+    cpu_inputs = (inputs[0].cpu(), tuple(t.cpu() for t in inputs[1]), inputs[2].cpu())
+    t0 = time.time()
+    cpu = distill_gradients(copy.deepcopy(state.student).cpu(),
+                            teacher_outputs(copy.deepcopy(teacher).cpu(), cpu_inputs[0]), cpu_inputs, cfg)
+    t_cpu = time.time() - t0
+    agree = distill_agreement(cpu, card)
+    log(f"distill: one step, card against CPU ({t_card:.2f} s vs {t_cpu:.2f} s, first calls): metrics card "
+        + ", ".join(f"{k} {card[0][k]:.6g}" for k in card[0]) + "; relative differences "
+        + ", ".join(f"{k} {v:.3g}" for k, v in agree["rel"].items())
+        + f"; gradient cosine {agree['global_cos']:.7f}, rel-L2 {agree['global_rel']:.5f}, least leaf cosine "
+        f"{agree['leaf_min_cos']:.6f} ({agree['leaf_worst']}, {agree['leaves_checked']} leaves) (tolerance "
+        f"{DISTILL_AGREEMENT}): {'PASS' if agree['ok'] else 'FAIL'}")
+    if not agree["ok"]:
+        failures.append("distill: the card's step disagrees with the CPU's")
+    del card, cpu, cpu_inputs
+
+    (state, history, payload), launches, t_run = drive_path(
+        wrappers, lambda: distill(cfg, DISTILL_STEPS, seed=0, log_every=DISTILL_LOG_EVERY, state=state, pool=pool,
+                                  teacher=(teacher, tree, meta), device=dev))
+    launches_by_path["distill"] = launches
+    steps = np.array([s for s, _ in history])
+    losses = np.array([m["loss"] for _, m in history])
+    tenth = DISTILL_STEPS // 10
+    first, last = float(losses[steps < tenth].mean()), float(losses[steps >= DISTILL_STEPS - tenth].mean())
+    log(f"distill: {DISTILL_STEPS} steps of {cfg.batch_size} crops at {cfg.width}x{cfg.height} (stem "
+        f"{teacher.cfg.stem_stride} -> {cfg.stem_stride}) in {t_run:.2f} s: {DISTILL_STEPS / t_run:.2f} steps/s on "
+        f"{torch.cuda.get_device_name(0)} ({smi}); mean logged loss first tenth {first:.4f}, last tenth {last:.4f} "
+        f"(ratio {last / first:.4f}, rule < {TRAIN_LOSS_RATIO}); last step "
+        + " ".join(f"{k}={v:.4f}" for k, v in history[-1][1].items()) + f"; launches {launches}")
+    if len(history) != DISTILL_STEPS // DISTILL_LOG_EVERY or not np.isfinite(losses).all():
+        failures.append("distill: a loss is not finite (or logged steps are missing)")
+    if not last < TRAIN_LOSS_RATIO * first:
+        failures.append(f"distill: the loss did not fall ({first:.4f} -> {last:.4f})")
+    busy = [k for k, n in launches.items() if n]
+    if busy:
+        failures.append(f"distill: kernels launched that distillation must not run: {busy}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "distilled.msgpack")
+        save_distilled(payload, cfg, path, meta)
+        back_meta, back = read_checkpoint(path)
+        ok_student = same_tree(back["superpoint"]["params"], superpoint_to_jax(state.student))
+        ok_sg = same_tree(back["superglue"], tree["superglue"])
+        fe_d = load_learned_frontend(path, (H, W), K, device=dev)
+        ok = ok_student and ok_sg and back_meta["stem_stride"] == 4 and fe_d.cfg.superpoint.stem_stride == 4
+        log(f"distill: checkpoint of {os.path.getsize(path)} bytes (meta {back_meta}) read back: student "
+            f"{'equal' if ok_student else 'DIFFERENT'}, SuperGlue subtree {'byte-equal to the teacher' if ok_sg else 'DIFFERENT'}; "
+            f"loaded by load_learned_frontend at stem {fe_d.cfg.superpoint.stem_stride}")
+    if not ok:
+        failures.append("distill: the checkpoint read back differs (student, SuperGlue subtree or meta)")
+    tracked, pairs, err = track_clip(learned_frontend(fe_d))
+    log(f"distill: the {DISTILL_STEPS}-step student on the {pairs}-pair clip (printed, not held): {tracked}/{pairs} "
+        f"tracked, ATE {err:.4f} m")
+    print(json.dumps({"distill": {"steps": DISTILL_STEPS, "steps_per_s": DISTILL_STEPS / t_run, "seconds": t_run,
+                                  "loss_first_tenth": first, "loss_last_tenth": last,
+                                  "loss_logged": [round(float(x), 4) for x in losses],
+                                  "agreement": {k: agree[k] for k in ("rel", "global_cos", "global_rel",
+                                                                       "leaf_min_cos")},
+                                  "launches": launches, "clip_tracked": tracked, "clip_ate_m": err}}), flush=True)
+    return failures
+
+
+SGM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "sgm_cv2.npz")
+
+
+def dense_phase(wrappers, launches_by_path, smi, run, report, il, ir):
+    """The 31-pair clip through ``run`` (the learned path with dense
+    depth): tracking within the clip's bounds, the learned kernels but
+    ``sparse_cost`` launched; SGM's time a frame; the cv2 fixture check."""
+    from forest_slam_tpu_torch.stereo.disparity import SgmConfig, sgm_disparity
+
+    _, _, t_cold = drive_path(wrappers, run)
+    log(f"dense path warm-up run: {t_cold:.2f} s")
+    out, launches, t_run = drive_path(wrappers, run)
+    launches_by_path["dense"] = launches
+    n_pairs = out.pose.shape[0]
+    tracked, err = report("dense", out, t_run, launches, shares=False)
+    failures = path_failures("dense", out, tracked, err, launches,
+                             ("select", "gnn_layer", "sinkhorn_decode", "refine_cost"), idle_kernels=("sparse_cost",))
+    sgm_ms = time_ms(lambda: sgm_disparity(il[:2], ir[:2], SgmConfig()), reps=3) / 2
+    fixture, fix_failures = sgm_fixture_check(il.device)
+    failures += fix_failures
+    log(f"dense: SGM (D={SgmConfig().num_disparities}, block {SgmConfig().block_size}) {sgm_ms:.2f} ms a frame at "
+        f"{il.shape[2]}x{il.shape[1]} in pairs of frames, {n_pairs / t_run:.2f} pairs/s on the clip, on "
+        f"{torch.cuda.get_device_name(0)} ({smi}); cv2 fixture: valid {fixture['valid_share']:.4f}, |ours - cv2| "
+        f"median {fixture['median_vs_cv2']:.4f} p90 {fixture['p90_vs_cv2']:.4f}, median error to ground truth "
+        f"{fixture['median_vs_gt']:.4f} (cv2 {fixture['cv2_median_vs_gt']:.4f}); card equals CPU on every integer "
+        f"disparity: {fixture['integer_equal_cpu']}, largest difference {fixture['max_abs_diff_cpu']:.3g} (CPU "
+        f"{fixture['cpu_seconds']:.2f} s)")
+    print(json.dumps({"dense": {"tracked": tracked, "pairs": n_pairs, "ate_m": err, "pairs_per_s": n_pairs / t_run,
+                                "sgm_ms_per_frame": sgm_ms, "fixture": fixture, "launches": launches}}), flush=True)
+    return failures
+
+
+def sgm_fixture_check(dev):
+    """The port's SGM on the card over the OpenCV fixture (600x960, D=96):
+    tests/test_stereo_disparity.py's bounds, and equality with the port's
+    CPU result. Returns (record, failures)."""
+    from forest_slam_tpu_torch.stereo.disparity import SgmConfig, sgm_disparity
+
+    fix = np.load(SGM_FIXTURE)
+    left, right, cv, gt = (fix[k].astype(np.float32) for k in ("left", "right", "disparity", "gt_disparity"))
+    lt, rt = torch.as_tensor(left)[None], torch.as_tensor(right)[None]
+    ours = sgm_disparity(lt.to(dev), rt.to(dev), SgmConfig())[0].cpu().numpy()
+    t0 = time.time()
+    on_cpu = sgm_disparity(lt, rt, SgmConfig())[0].numpy()
+    t_cpu = time.time() - t0
+    both = (ours > 0) & (cv > 0)
+    both[:, :100] = False
+    agree = np.abs(ours - cv)[both]
+    m = both & (gt > 1.0) & (gt < 90.0)
+    med_ours, med_cv = float(np.median(np.abs(ours - gt)[m])), float(np.median(np.abs(cv - gt)[m]))
+    rec = dict(valid_share=float(both.mean()), median_vs_cv2=float(np.median(agree)),
+               p90_vs_cv2=float(np.percentile(agree, 90)), median_vs_gt=med_ours, cv2_median_vs_gt=med_cv,
+               integer_equal_cpu=bool(np.array_equal(np.floor(ours), np.floor(on_cpu))),
+               max_abs_diff_cpu=float(np.abs(ours - on_cpu).max()), cpu_seconds=t_cpu)
+    failures = []
+    if not (rec["valid_share"] > 0.5 and rec["median_vs_cv2"] < 0.5 and rec["p90_vs_cv2"] < 2.0
+            and med_ours < max(2.0 * med_cv, 0.3)):
+        failures.append(f"dense: SGM outside the cv2 fixture's bounds: {rec}")
+    if not (rec["integer_equal_cpu"] and rec["max_abs_diff_cpu"] <= 1e-6):
+        failures.append("dense: SGM on the card differs from the CPU's on the fixture")
+    return rec, failures
+
+
 def render_frames(dev, h, w, n):
     """n consecutive corridor frames at w x h rendered on the card: (left,
     right, ground-truth poses, rig)."""
@@ -870,14 +1138,8 @@ def train_phase(dev, wrappers, launches_by_path, smi):
         path = os.path.join(tmp, "trained.msgpack")
         save_params(params_to_jax(state.frontend), path, meta=checkpoint_meta(cfg))
         back = load_learned_frontend(path, (TRAIN_H, TRAIN_W), TRAIN_M, device=dev)
-        saved, read = params_to_jax(state.frontend), params_to_jax(back)
-
-        def same(a, b):
-            if isinstance(a, dict):
-                return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
-            return a.shape == b.shape and np.array_equal(a, b)
-
-        ok = same(saved, read) and back.cfg.superpoint.stem_stride == 2 and back.cfg.superglue.gnn_layers == 9
+        ok = (same_tree(params_to_jax(state.frontend), params_to_jax(back)) and back.cfg.superpoint.stem_stride == 2
+              and back.cfg.superglue.gnn_layers == 9)
         log(f"train: checkpoint of {os.path.getsize(path)} bytes written by save_params and read back by "
             f"load_learned_frontend: {'equal weights' if ok else 'DIFFERENT'}")
     if not ok:
@@ -1112,6 +1374,13 @@ def main() -> int:
     del plain_out, out
     torch.cuda.empty_cache()
 
+    # dense stereo: the reference's SGBM parity path with the flagship front end
+    from forest_slam_tpu_torch.stereo.disparity import SgmConfig
+
+    failures += dense_phase(wrappers, launches_by_path, smi, run_learned(cfg._replace(dense_depth=True, sgm=SgmConfig()),
+                                                                         frontend), report, il, ir)
+    torch.cuda.empty_cache()
+
     # bench.py's 962-pair workload, learned then ORB
     records = {}
     for kind, n_timed, path_kernels in (("sp", 3, ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode",
@@ -1163,6 +1432,14 @@ def main() -> int:
 
     # the training path: python -m forest_slam_tpu_torch.train's recipe at full width
     failures += train_phase(dev, wrappers, launches_by_path, smi)
+    torch.cuda.empty_cache()
+
+    # distillation: python -m forest_slam_tpu_torch.train.distill's round-5 recipe at full width
+    def track_clip(f):
+        out = run_learned(cfg, f)()
+        return int(out.ok.sum().item()), n_pairs, ate(out.pose, gt)
+
+    failures += distill_phase(dev, wrappers, launches_by_path, smi, track_clip)
 
     if failures:
         print("FAIL: " + "; ".join(failures), file=sys.stderr)

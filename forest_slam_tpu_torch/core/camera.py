@@ -1,6 +1,6 @@
-"""Pinhole camera with Brown-Conrady distortion (port of core/camera.py, the
-parts the port uses). Point ops are batched over leading dims (..., N, 2/3);
-:func:`remap_bilinear` over the leading dims of its images.
+"""Pinhole camera with Brown-Conrady distortion (port of core/camera.py).
+Point ops are batched over leading dims (..., N, 2/3); :func:`remap_bilinear`
+and :func:`undistort_image` over the leading dims of their images.
 """
 
 from __future__ import annotations
@@ -130,3 +130,28 @@ def remap_bilinear(image: torch.Tensor, src_map: torch.Tensor) -> torch.Tensor:
 
     return (gather(y0i, x0i) * (1 - fx) * (1 - fy) + gather(y0i, x0i + 1) * fx * (1 - fy)
             + gather(y0i + 1, x0i) * (1 - fx) * fy + gather(y0i + 1, x0i + 1) * fx * fy)
+
+
+def undistort_map(cam: PinholeCamera) -> torch.Tensor:
+    """(H, W, 2) dst -> src sampling grid of (x, y) source pixels, as
+    ``cv2.initUndistortRectifyMap`` builds it: each destination pixel
+    normalised with K, distorted, reprojected with K."""
+    dev = cam.K.device
+    grid_y, grid_x = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=dev),
+                                    torch.arange(cam.width, dtype=torch.float32, device=dev), indexing="ij")
+    xn = torch.stack([(grid_x - cam.cx) / cam.fx, (grid_y - cam.cy) / cam.fy], dim=-1)
+    xd = distort_points(xn, cam.dist)
+    return torch.stack([xd[..., 0] * cam.fx + cam.cx, xd[..., 1] * cam.fy + cam.cy], dim=-1)
+
+
+def undistort_image(image: torch.Tensor, cam: PinholeCamera) -> torch.Tensor:
+    """Undistort (..., H, W) images (the map built inline; a pipeline builds
+    it once per calibration with :func:`undistort_map`)."""
+    return remap_bilinear(image, undistort_map(cam))
+
+
+def bgr_to_gray(image: torch.Tensor) -> torch.Tensor:
+    """BGR (..., H, W, 3) -> gray (..., H, W) float32 with OpenCV's luma
+    weights (stereo_slam.py:186, ``cv2.COLOR_BGR2GRAY``)."""
+    img = image.float()
+    return img[..., 0] * 0.114 + img[..., 1] * 0.587 + img[..., 2] * 0.299

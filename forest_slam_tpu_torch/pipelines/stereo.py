@@ -3,7 +3,9 @@ batched and device runners).
 
 Three phases over a stereo sequence (N, H, W):
 
-1. per frame, in batches: features + per-keypoint sparse stereo depth;
+1. per frame, in batches: features + per-keypoint depth, from sparse
+   stereo at the keypoints or, with ``dense_depth``, from a dense SGM map
+   read at them (the reference's parity path);
 2. per pair, in batches: temporal match, SAD refinement of the
    observations, PnP-RANSAC and the acceptance gate;
 3. chaining of the gated relative poses and world-frame map points.
@@ -26,7 +28,13 @@ from forest_slam_tpu_torch.frontend.orb import OrbConfig
 from forest_slam_tpu_torch.frontend.refine import RefineConfig, refine_matches_quality
 from forest_slam_tpu_torch.geometry.pnp import solve_pnp_ransac
 from forest_slam_tpu_torch.io.tum import Trajectory
+from forest_slam_tpu_torch.stereo.depth import depth_at_keypoints, disparity_to_depth
+from forest_slam_tpu_torch.stereo.disparity import SgmConfig, sgm_disparity
 from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig, sparse_depth_at_keypoints
+
+# frames a dense-depth SGM call takes at once (the reference's
+# ``lax.map(batch_size=2)``): about 1.1 GB of volumes a frame at 600x960, D=96
+SGM_FRAME_BATCH = 2
 
 
 class StereoConfig(NamedTuple):
@@ -60,6 +68,10 @@ class StereoConfig(NamedTuple):
     photo_norm: bool = False
     # PnP minimal solver: "dlt6" or "p3p"
     pnp_minimal: str = "dlt6"
+    # dense SGM depth read at the keypoints (the reference's parity path)
+    # in place of sparse stereo
+    sgm: SgmConfig = SgmConfig()
+    dense_depth: bool = False
 
 
 class StereoStepOut(NamedTuple):
@@ -107,9 +119,25 @@ def photo_normalize_stack(images: torch.Tensor) -> torch.Tensor:
     return torch.clamp((images - mean) / std * 48.0 + 127.0, 0.0, 255.0)
 
 
+def dense_depth_at_keypoints(images_l, images_r, xy, rig: StereoRig, sgm: SgmConfig) -> torch.Tensor:
+    """(B, K) depths of (B, K, 2) keypoints read from the SGM depth maps of
+    (B, H, W) frames, ``SGM_FRAME_BATCH`` frames at a time."""
+    zs = []
+    for s in range(0, images_l.shape[0], SGM_FRAME_BATCH):
+        part = slice(s, s + SGM_FRAME_BATCH)
+        disp = sgm_disparity(images_l[part], images_r[part], sgm)
+        zs.append(depth_at_keypoints(disparity_to_depth(disp, rig.left.fx, rig.baseline), xy[part]))
+    return torch.cat(zs)
+
+
 def frame_features(images_l, images_r, rig: StereoRig, cfg: StereoConfig, frontend: FrontendFns):
-    """Features + per-keypoint depth for a batch of frames (B, H, W)."""
+    """Features + per-keypoint depth for a batch of frames (B, H, W). Dense
+    depths are all marked valid: the pair phase's depth gate drops the
+    clamped ones, as the reference does."""
     feats = frontend.extract(images_l)
+    if cfg.dense_depth:
+        z = dense_depth_at_keypoints(images_l, images_r, feats.xy, rig, cfg.sgm)
+        return feats, z, torch.ones_like(z, dtype=torch.bool)
     z, z_ok = sparse_depth_at_keypoints(images_l, images_r, feats.xy, rig.left.fx, rig.baseline, cfg.sparse)
     return feats, z, z_ok
 

@@ -75,19 +75,15 @@ def corner_draws(gen, batch: int, height: int, width: int, n_shapes: int = 12, d
     )
 
 
-def random_corner_image(draws: CornerDraws, height: int, width: int, max_corners: int = 48):
-    """Rotated rectangles on a noise background: (images (B, H, W) in [0,
-    255], corners (B, M, 2) xy, valid (B, M)). Later shapes paint over
-    earlier ones; occluded corners stay labelled (label noise, as in
-    homographic adaptation). With 4S >= M a random subset is kept, in-bounds
-    corners first."""
+def corner_image(draws: CornerDraws, height: int, width: int) -> torch.Tensor:
+    """(B, H, W) rotated rectangles painted on a noise background in [0,
+    255]; later shapes paint over earlier ones."""
     dev = draws.bg.device
-    B, S = draws.angles.shape
     img = draws.bg * 40.0 + 60.0
     ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     ca, sa = torch.cos(draws.angles), torch.sin(draws.angles)  # (B, S)
-    for s in range(S):  # in paint order
+    for s in range(draws.angles.shape[1]):  # in paint order
         col = lambda t: t[:, s, None, None]
         dx = xs - draws.centers[:, s, 0, None, None]
         dy = ys - draws.centers[:, s, 1, None, None]
@@ -95,6 +91,19 @@ def random_corner_image(draws: CornerDraws, height: int, width: int, max_corners
         v = -col(sa) * dx + col(ca) * dy
         inside = (u.abs() <= draws.sizes[:, s, 0, None, None] / 2) & (v.abs() <= draws.sizes[:, s, 1, None, None] / 2)
         img = torch.where(inside, col(draws.intensities), img)
+    return img
+
+
+def random_corner_image(draws: CornerDraws, height: int, width: int, max_corners: int = 48):
+    """Rotated rectangles on a noise background (:func:`corner_image`) and
+    their corners: (images (B, H, W) in [0, 255], corners (B, M, 2) xy,
+    valid (B, M)). Occluded corners stay labelled (label noise, as in
+    homographic adaptation). With 4S >= M a random subset is kept, in-bounds
+    corners first."""
+    dev = draws.bg.device
+    B, S = draws.angles.shape
+    img = corner_image(draws, height, width)
+    ca, sa = torch.cos(draws.angles), torch.sin(draws.angles)
     # 4 corners a shape: centre + R (+-w/2, +-h/2), R mapping local -> image
     signs = torch.tensor([[1, 1], [1, -1], [-1, 1], [-1, -1]], dtype=torch.float32, device=dev)
     local = signs[None, None] * (draws.sizes[:, :, None, :] / 2)  # (B, S, 4, 2)
@@ -206,12 +215,17 @@ def teacher_points(images: torch.Tensor, max_corners: int):
     return xy, valid
 
 
-def random_texture_image(draws: TextureDraws, height: int, width: int, max_corners: int = 48):
-    """Multi-octave value noise (coarse blobs + fine grain, each octave
-    upsampled bilinearly) labelled by the Harris teacher: (images, corners,
-    valid)."""
+def texture_image(draws: TextureDraws, height: int, width: int) -> torch.Tensor:
+    """(B, H, W) multi-octave value noise in [0, 255]: coarse blobs + fine
+    grain, each octave upsampled bilinearly."""
     up = lambda t: resize_bilinear(t, height, width)
-    img = (0.55 * up(draws.coarse) + 0.3 * up(draws.mid) + 0.15 * draws.fine) * 255.0
+    return (0.55 * up(draws.coarse) + 0.3 * up(draws.mid) + 0.15 * draws.fine) * 255.0
+
+
+def random_texture_image(draws: TextureDraws, height: int, width: int, max_corners: int = 48):
+    """:func:`texture_image` labelled by the Harris teacher: (images,
+    corners, valid)."""
+    img = texture_image(draws, height, width)
     xy, valid = teacher_points(img, max_corners)
     return img, xy, valid
 

@@ -139,14 +139,21 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     t.copy_(torch.clamp(z, -2.0, 2.0) * std)
 
 
-def flax_init_(fe: LearnedFrontend, gen: torch.Generator) -> None:
-    """Flax's initialisers from ``gen``: LeCun-normal Dense and Conv
-    kernels, zero biases, LayerNorm scale one and bias zero, bin_score 1."""
+def superpoint_init_(net: SuperPointNet, gen: torch.Generator) -> None:
+    """Flax's initialisers of a SuperPointNet from ``gen``: LeCun-normal
+    conv kernels, zero biases."""
     with torch.no_grad():
-        for conv in fe.superpoint.convs.values():
+        for conv in net.convs.values():
             o, i, kh, kw = conv.weight.shape
             _lecun_normal_(conv.weight, i * kh * kw, gen)
             conv.bias.zero_()
+
+
+def flax_init_(fe: LearnedFrontend, gen: torch.Generator) -> None:
+    """Flax's initialisers from ``gen``: LeCun-normal Dense and Conv
+    kernels, zero biases, LayerNorm scale one and bias zero, bin_score 1."""
+    superpoint_init_(fe.superpoint, gen)
+    with torch.no_grad():
         sg = fe.superglue
         for lin in [*sg.kenc.mlp, sg.kenc.mlp_out, sg.final_proj]:
             _lecun_normal_(lin.weight, lin.weight.shape[1], gen)

@@ -80,3 +80,30 @@ def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     down = height < shape[-2] or width < shape[-1]
     out = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False, antialias=down)
     return out.reshape(*shape[:-2], height, width)
+
+
+def map_coordinates_linear(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.ndimage.map_coordinates(img, [y, x], order=1,
+    mode="nearest")`` over a batch: sample (B, H, W) images, or (B, H, W, C)
+    grids with channels last, at (B, H', W') coordinates -> (B, H', W'[,
+    C]). Each of the four taps clamps its own index to the edge, so a
+    coordinate past the border reads the edge value; the weights and the
+    sum are taken in the reference's order."""
+    B, H, W = img.shape[:3]
+    chan = img.dim() == 4
+    flat = img.reshape(B, H * W, -1) if chan else img.reshape(B, H * W)
+    y0, x0 = torch.floor(y), torch.floor(x)
+    wy1, wx1 = y - y0, x - x0
+    taps_y = ((y0.long(), 1 - wy1), (y0.long() + 1, wy1))
+    taps_x = ((x0.long(), 1 - wx1), (x0.long() + 1, wx1))
+    out = None
+    for iy, wy in taps_y:
+        for ix, wx in taps_x:
+            idx = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(B, -1)
+            if chan:
+                vals = flat.gather(1, idx[..., None].expand(-1, -1, flat.shape[-1])).reshape(*y.shape, -1)
+                term = (wy * wx)[..., None] * vals
+            else:
+                term = (wy * wx) * flat.gather(1, idx).reshape(y.shape)
+            out = term if out is None else out + term
+    return out

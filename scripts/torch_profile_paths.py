@@ -5,9 +5,10 @@ Run from the repository root with no arguments:
 
     python3 scripts/torch_profile_paths.py
 
-It drives the four paths of chip_smoke.py with their configurations: ORB,
-learned and learned with the unfused GNN on the 960x600 corridor clip, and
-the lowres gate on 24 corridor frames at 224x160; then the 962-pair workload
+It drives the paths of chip_smoke.py with their configurations: ORB,
+learned, learned with the unfused GNN and learned with dense SGM depth
+(``dense_depth``, D=96) on the 960x600 corridor clip, and the lowres gate
+on 24 corridor frames at 224x160; then the 962-pair workload
 of ``forest_slam_tpu_torch.bench`` (learned and ORB) and one seed of its
 wb_k10 gate (octaves 1.0, 0.707, 0.5, refine radius 24 at four scales,
 P3P, 15 pairs in one batch), three times each after a
@@ -141,10 +142,11 @@ def main() -> int:
         "learned": learned((il, ir), rig, sp_cfg, cs.FRAME_BATCH, (cs.H, cs.W), cs.K),
         "unfused": learned((il, ir), rig, sp_cfg, cs.FRAME_BATCH, (cs.H, cs.W), cs.K,
                            superglue_overrides={"gnn_impl": "xla"}),
+        "dense": learned((il, ir), rig, sp_cfg._replace(dense_depth=True), cs.FRAME_BATCH, (cs.H, cs.W), cs.K),
         "lowres": learned((gl, gr), rig_g, low_cfg, cs.LOWRES_FRAMES, (cs.LOWRES_H, cs.LOWRES_W), cs.LOWRES_K,
                           scales=cs.LOWRES_SCALES),
     }
-    pairs = {"orb": cs.N_FRAMES - 1, "learned": cs.N_FRAMES - 1, "unfused": cs.N_FRAMES - 1,
+    pairs = {"orb": cs.N_FRAMES - 1, "learned": cs.N_FRAMES - 1, "unfused": cs.N_FRAMES - 1, "dense": cs.N_FRAMES - 1,
              "lowres": cs.LOWRES_FRAMES - 1}
 
     from forest_slam_tpu_torch import bench

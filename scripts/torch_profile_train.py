@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where a training step's time goes on the card.
+"""Where a training or distillation step's time goes on the card.
 
-    python3 scripts/torch_profile_train.py [--steps 20] [--pool 64]
+    python3 scripts/torch_profile_train.py [--steps 20] [--pool 64] [--distill]
 
 runs ``chip_smoke.py``'s training recipe (``chip_smoke.train_config()``:
 stem 2, 9 layer pairs, 16 pairs of 120x160, 48 corners, texture 0.4,
 corridor 0.3) from ``create_train_state`` on a corridor pool of ``--pool``
-pairs rendered on the card, after 5 warm-up steps:
+pairs rendered on the card, or with ``--distill`` its distillation recipe
+(``chip_smoke.distill_config()``: the stem-2 teacher into a stem-4 student,
+batch 8 of 240x320, every term on) on a pool of ``--pool`` 600x960 frames,
+after 5 warm-up steps:
 
 1. phases, each ended by ``torch.cuda.synchronize()``, over ``--steps``
-   steps: batch drawing (``make_training_batch``), the forward
-   (``loss_fn``), the backward, the AdamW step;
-2. the same steps back to back (``train_step``, one synchronise at the end):
-   steps/s;
+   steps: batch drawing (``make_training_batch``; the crops, zoom and blur of
+   ``train.distill.step_inputs``), the forward (``loss_fn``; the teacher's
+   forward and ``distill_loss``), the backward, the AdamW step;
+2. the same steps back to back (``train_step``, ``distill_step``; one
+   synchronise at the end): steps/s;
 3. ``--steps`` steps under ``torch.profiler``: the device's busy time (the
    union of kernel intervals) and its share of the profiled window and of
    the unprofiled steps of 2 (the profiler slows the host, not the card),
@@ -52,6 +56,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--pool", type=int, default=64)
+    ap.add_argument("--distill", action="store_true", help="the distillation recipe in place of training")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -63,24 +68,39 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from forest_slam_tpu_torch import _build
+    from forest_slam_tpu_torch.train import distill as D
     from forest_slam_tpu_torch.train.data import make_corridor_pool, make_training_batch
     from forest_slam_tpu_torch.train.trainer import create_train_state, loss_fn, train_step
 
     dev = torch.device("cuda", 0)
     _build.build()
-    cfg = cs.train_config()
-    state = create_train_state(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    pool = make_corridor_pool(gen, args.pool, cfg.height, cfg.width, cfg.max_corners, device=dev)
-    draw = lambda: make_training_batch(gen, cfg.batch_size, cfg.height, cfg.width, cfg.max_corners,
-                                       cfg.texture_fraction, cfg.corridor_fraction, pool, dev)
+    if args.distill:
+        cfg = cs.distill_config()._replace(pool_frames=args.pool)
+        teacher, _, _ = D.load_teacher(cfg, dev)
+        state = D.create_student_state(cfg, seed=0, device=dev)
+        host = torch.Generator()
+        host.manual_seed(0)
+        pool = D.make_scene_pool(gen, cfg, dev)
+        draw = lambda: D.step_inputs(gen, host, cfg, pool)
+        step = lambda st, inp: D.distill_step(st, teacher, inp[0], cfg, inp[1], inp[2])
+        forward = lambda st, inp: D.distill_loss(st.student, D.teacher_outputs(teacher, inp[0]), inp[0], cfg, inp[1],
+                                                 inp[2])
+    else:
+        cfg = cs.train_config()
+        state = create_train_state(cfg, seed=0, device=dev)
+        pool = make_corridor_pool(gen, args.pool, cfg.height, cfg.width, cfg.max_corners, device=dev)
+        draw = lambda: make_training_batch(gen, cfg.batch_size, cfg.height, cfg.width, cfg.max_corners,
+                                           cfg.texture_fraction, cfg.corridor_fraction, pool, dev)
+        step = lambda st, batch: train_step(st, batch, cfg)
+        forward = lambda st, batch: loss_fn(st.frontend, batch, cfg)
     for _ in range(5):
-        state, _ = train_step(state, draw(), cfg)
+        state, _ = step(state, draw())
     torch.cuda.synchronize()
 
     phases = {"batch": 0.0, "forward": 0.0, "backward": 0.0, "adamw": 0.0}
-    fe, opt = state.frontend, state.optimizer
+    opt = state.optimizer
 
     def timed(name, fn):
         t = time.perf_counter()
@@ -92,21 +112,21 @@ def main() -> int:
     for _ in range(args.steps):
         batch = timed("batch", draw)
         opt.zero_grad(set_to_none=True)
-        total, _ = timed("forward", lambda: loss_fn(fe, batch, cfg))
+        total, _ = timed("forward", lambda: forward(state, batch))
         timed("backward", total.backward)
         timed("adamw", opt.step)
     per_step_phases = {k: v / args.steps * 1e3 for k, v in phases.items()}
 
     t = time.perf_counter()
     for _ in range(args.steps):
-        state, metrics = train_step(state, draw(), cfg)
+        state, metrics = step(state, draw())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(args.steps):
-            state, metrics = train_step(state, draw(), cfg)
+            state, metrics = step(state, draw())
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t
     # device events, less the profiler's own ranges on the device timeline
@@ -123,7 +143,8 @@ def main() -> int:
     top_ops = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
     smi = cs.nvidia_smi_line()
     result = {
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "steps": args.steps,
+        "recipe": "distill" if args.distill else "train", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "steps": args.steps,
         "steps_per_s": args.steps / wall, "ms_per_step": wall / args.steps * 1e3,
         "phases_ms_per_step": per_step_phases,
         "profiled_ms_per_step": prof_wall / args.steps * 1e3,

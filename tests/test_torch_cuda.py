@@ -15,7 +15,10 @@ output within 2^-7 of its largest entry, mean 1e-3, as
 tests/test_torch_attention.py holds the plain version to the reference; its
 gradients under autograd (a recompute of the plain version) equal the plain
 version's autograd bit for bit. One training step of the full-width recipe
-on the card agrees with the CPU's within chip_smoke.TRAIN_AGREEMENT.
+on the card agrees with the CPU's within chip_smoke.TRAIN_AGREEMENT, one
+distillation step of the round-5 recipe within
+chip_smoke.DISTILL_AGREEMENT; the SGM disparity (plain PyTorch) on the card
+equals the CPU's on the OpenCV fixture.
 """
 
 import pytest
@@ -665,3 +668,46 @@ def test_train_step_card_matches_cpu(cuda):
     assert [w.launches - c for w, c in zip(wrappers, counts)] == [18, 0, 0, 0, 0, 0, 0]
     assert all(torch.isfinite(v) for v in metrics.values())
     assert all(not torch.equal(a, p) for a, p in zip(before, state.frontend.parameters()))
+
+
+def test_distill_step_card_matches_cpu(cuda):
+    """One distillation step of chip_smoke.py's round-5 recipe (the stem-2
+    teacher, a stem-4 student, every term on) on the card against the CPU,
+    on the batch chip_smoke.DISTILL_AGREEMENT's bounds were measured on
+    (chip_smoke.distill_setup), same teacher and student, within those
+    bounds; then a distill_step on the card launches no kernel and moves
+    every parameter."""
+    import copy
+
+    from forest_slam_tpu_torch.train.distill import distill_step, step_inputs, teacher_outputs
+
+    dev, _ = cuda
+    cs = _chip_smoke()
+    cfg, (teacher, _, _), state, g, host, pool = cs.distill_setup(dev)
+    inputs = step_inputs(g, host, cfg, pool)
+    card = cs.distill_gradients(state.student, teacher_outputs(teacher, inputs[0]), inputs, cfg)
+    cpu_inputs = (inputs[0].cpu(), tuple(t.cpu() for t in inputs[1]), inputs[2].cpu())
+    cpu = cs.distill_gradients(copy.deepcopy(state.student).cpu(),
+                               teacher_outputs(copy.deepcopy(teacher).cpu(), cpu_inputs[0]), cpu_inputs, cfg)
+    agree = cs.distill_agreement(cpu, card)
+    assert agree["ok"], agree
+    before = [p.detach().clone() for p in state.student.parameters()]
+    wrappers = [attention_forward, gnn_layer, sinkhorn_decode, nms_block_max, detect_pooled, sparse_cost_rows,
+                refine_cost_volume]
+    counts = [w.launches for w in wrappers]
+    state, metrics = distill_step(state, teacher, inputs[0], cfg, inputs[1], inputs[2])
+    torch.cuda.synchronize()
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == [0] * 7
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert all(not torch.equal(a, p) for a, p in zip(before, state.student.parameters()))
+
+
+def test_sgm_card_equals_cpu_on_the_cv2_fixture(cuda):
+    """The port's SGM on the card over the OpenCV fixture (600x960, D=96)
+    equals its CPU result on every pixel: exact costs, first-index argmin,
+    the same parabola division; and tests/test_stereo_disparity.py's bounds
+    against cv2 and the ground truth hold."""
+    dev, _ = cuda
+    rec, failures = _chip_smoke().sgm_fixture_check(dev)
+    assert not failures, rec
+    assert rec["integer_equal_cpu"] and rec["max_abs_diff_cpu"] == 0.0

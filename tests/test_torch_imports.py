@@ -3,7 +3,8 @@
 - No module of forest_slam_tpu_torch, and not chip_smoke.py, imports jax,
   flax, msgpack, cv2 or the JAX package (checked in a fresh interpreter).
 - chip_smoke.py fails, and prints no result line, where there is no CUDA
-  card, and where it stands alone in a directory.
+  card, and where it stands alone in a directory; the distillation entry
+  point refuses to run without a card unless given ``--device cpu``.
 - The kernel build reports nvcc's own output when nvcc fails, and leaves no
   partial library behind.
 """
@@ -43,10 +44,11 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 43
+    assert n_modules >= 47
     names = out.stdout.splitlines()[1].split()
     for mod in ("frontend.select_kernel", "frontend.attention_kernel", "frontend.learned", "frontend.superglue",
-                "frontend.params", "train", "train.losses", "train.data", "train.trainer", "train.__main__"):
+                "frontend.params", "train", "train.losses", "train.data", "train.trainer", "train.__main__",
+                "train.distill", "stereo.disparity", "stereo.depth", "stereo.rectify"):
         assert "forest_slam_tpu_torch." + mod in names
 
 
@@ -70,6 +72,21 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_distill_entry_point_needs_a_card_or_the_cpu(tmp_path):
+    """``python -m forest_slam_tpu_torch.train.distill`` without ``--device
+    cpu`` refuses to run where there is no card, before it reads a teacher."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, "-m", "forest_slam_tpu_torch.train.distill", "--teacher",
+                          str(tmp_path / "absent.msgpack"), "--out", str(tmp_path / "out.msgpack"), "--steps", "1"],
+                         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr and "absent.msgpack" not in out.stderr
+    assert not (tmp_path / "out.msgpack").exists()
 
 
 def test_build_failure_reports_nvcc_output(tmp_path, monkeypatch):

@@ -181,7 +181,12 @@ def test_refine_switches_off_and_p3p_match(run):
 
 def test_stereo_config_switches_default_as_the_reference():
     j, t = jst.StereoConfig(), tst.StereoConfig()
-    for f in ("match_refine_filter", "pnp_quality_sampling", "match_refine_scales", "photo_norm", "pnp_minimal"):
+    for f in ("match_refine_filter", "pnp_quality_sampling", "match_refine_scales", "photo_norm", "pnp_minimal",
+              "dense_depth"):
         assert getattr(t, f) == getattr(j, f), f
-    with pytest.raises(TypeError):
-        tst.StereoConfig(dense_depth=True)
+    assert t.dense_depth is False and t.sgm.num_disparities == 96
+    # The port leaves out the reference's lr_max_diff, which nothing reads
+    # (no left-right check is computed); every other SGM field matches.
+    assert set(t.sgm._fields) == set(j.sgm._fields) - {"lr_max_diff"}
+    for f in t.sgm._fields:
+        assert getattr(t.sgm, f) == getattr(j.sgm, f), f
