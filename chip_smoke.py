@@ -54,20 +54,36 @@ Phases, each printing one line with its elapsed seconds:
    OpenCV fixture ``tests/fixtures/sgm_cv2.npz`` (600x960, D=96) within
    ``tests/test_stereo_disparity.py``'s bounds against cv2 and the rendered
    ground truth, and equal to the port's CPU result on every pixel;
-9. the 962-pair workload of ``bench.py`` through
+9. monocular VO (``forest-slam mono``, ``run_mono_vo`` with 1024
+   hypotheses) on the clip's 32 left frames with ``rig.left``, four runs,
+   each with its launch counts reset: (a) ORB at ``forest-slam mono``'s
+   defaults (parity, 5-point), held to 80% tracked (tests/test_pipeline_mono.py's
+   rule for parity), launching ``detect`` and nothing else, the same frames
+   through the plain versions tracking the same pairs; (b) ORB in odometry
+   mode (8-point), held to 90% tracked and a Sim(3)-aligned ATE below 5%
+   of the path (0.2325 m), the scan runner once on the same frames giving
+   the batched run's poses; (c) the learned flagship at K=1024, parity,
+   5-point (the reference's ``mono_slam.py`` configuration), held to 80%,
+   launching ``select``, ``gnn_layer`` and ``sinkhorn_decode`` and not
+   ``refine_cost`` or ``sparse_cost``; (d) the learned flagship in odometry
+   mode, held as (b). Each prints pairs/s, tracked pairs and the Sim(3) ATE
+   (a parity run's ATE is printed, not held: parity composes point
+   transforms); (a) and (c) also the ms and added peak memory of one 5-point
+   ``estimate_relative_pose`` of a pair batch;
+10. the 962-pair workload of ``bench.py`` through
    ``forest_slam_tpu_torch.bench``: 64 unique 960x600 frames ping-ponged to
    963, frame and pair batches of 32 and 48; the learned front end (a
    fall-back to ORB fails the run) with a warm-up and three timed runs
    (three more when they spread by over 10%), then ORB with a warm-up and
    one timed run; each held to 90% of its pairs tracked and ATE below
    0.25 m, with pairs/s, ATE and RPE printed;
-10. the gate suite of ``bench.py`` (``forest_slam_tpu_torch.bench.run_gates``):
+11. the gate suite of ``bench.py`` (``forest_slam_tpu_torch.bench.run_gates``):
    each vo gate's clip rendered on the card, worst of seeds 0 and 1; the
    gates that pass in the JAX package's record (``BENCH_r05.json``) are held
    to ``bench.py``'s bounds, ``blur_wb_k10`` and ``plain_k20`` (which fail
    there too) are printed only; the plain gates print that they did not run
    where their checkpoint is absent;
-11. training (``python -m forest_slam_tpu_torch.train``'s recipe at full
+12. training (``python -m forest_slam_tpu_torch.train``'s recipe at full
    width: stem 2, 9 layer pairs, 16 pairs of 120x160, 48 corners; the
    corridor pool cut to 128 pairs, the run to 300 steps): one step on the
    card against the CPU's on the same batch and parameters (loss terms and
@@ -77,7 +93,7 @@ Phases, each printing one line with its elapsed seconds:
    step and no other kernel; steps/s printed with the card's name and power
    limit; the trained weights written by ``save_params`` and read back by
    ``load_learned_frontend`` unchanged;
-12. distillation (``python -m forest_slam_tpu_torch.train.distill``'s
+13. distillation (``python -m forest_slam_tpu_torch.train.distill``'s
    round-5 recipe at full width: teacher
    ``weights/learned_frontend_stem2_subpix_wide.msgpack``, a stem-4
    student, batch 8 of 240x320, lr 1e-3, w_scale 2, w_blur 0.7, w_subpix
@@ -931,6 +947,124 @@ def distill_phase(dev, wrappers, launches_by_path, smi, track_clip):
     return failures
 
 
+# monocular VO (forest-slam mono) on the clip's left frames: tracked shares
+# by compose mode (tests/test_pipeline_mono.py's rules) and the Sim(3) ATE
+# bound, 5% of the path (31 pairs x 0.15 m)
+MONO_MIN_TRACKED = {"parity": 0.8, "odometry": 0.9}
+MONO_MAX_ATE_M = 0.05 * (N_FRAMES - 1) * 0.15
+MONO_HYPOTHESES = 1024
+MONO_SCAN_POSE_TOL = 1e-4  # m and rotation entries: the scan runner against the batched one
+
+
+def mono_inputs(frontend, il, cam, n_pairs=PAIR_BATCH):
+    """One pair batch of the mono path: the matched normalised points of
+    frames 0..n_pairs and their mask, by the path's own ``matched_points``."""
+    from forest_slam_tpu_torch.pipelines.mono import matched_points
+
+    feats = frontend.extract(il[:n_pairs + 1])
+    prev = type(feats)(*(a[:-1] for a in feats))
+    cur = type(feats)(*(a[1:] for a in feats))
+    return matched_points(prev, cur, cam, frontend, tuple(il.shape[1:]))
+
+
+def five_point_timing(frontend, il, cam):
+    """ms of one 5-point ``estimate_relative_pose`` of a pair batch at the
+    path's shapes (CUDA events), and the peak memory it adds."""
+    from forest_slam_tpu_torch.geometry.epipolar import estimate_relative_pose
+    from forest_slam_tpu_torch.geometry.ransac import gumbel_per_item
+
+    x0, x1, mask = mono_inputs(frontend, il, cam)
+    g = torch.Generator(device=il.device)
+    g.manual_seed(0)
+    gumbel = gumbel_per_item(x0.shape[0], (MONO_HYPOTHESES, x0.shape[1]), g, il.device)
+    run = lambda: estimate_relative_pose(x0, x1, mask, 1.0 / cam.fx, gumbel, minimal="5pt")  # noqa: E731
+    ms = time_ms(run, reps=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2**20, tuple(x0.shape)
+
+
+def mono_phase(wrappers, launches_by_path, smi, il, gt, rig, fe):
+    """``forest-slam mono`` on the clip's left frames through run_mono_vo,
+    1024 hypotheses: ORB and the learned flagship, each in parity (5-point)
+    and odometry (8-point) mode, held to their tracked shares, odometry also
+    to the Sim(3) ATE bound; ORB launches detect and nothing else, the
+    learned path select, gnn_layer and sinkhorn_decode and not refine_cost
+    or sparse_cost; ORB parity through the plain versions tracks the same
+    pairs; the scan runner gives ORB odometry's poses."""
+    from forest_slam_tpu_torch.frontend.base import learned_frontend, orb_frontend
+    from forest_slam_tpu_torch.frontend.orb import OrbConfig
+    from forest_slam_tpu_torch.pipelines.mono import MonoConfig, run_mono_vo
+
+    ts = np.arange(N_FRAMES) * 0.1
+    cam = rig.left
+    n_pairs = N_FRAMES - 1
+    failures, records = [], {}
+    launches_by_path["mono"] = {k: 0 for k in wrappers}
+    orb, learned = orb_frontend(MonoConfig().orb, MonoConfig().max_match_distance), learned_frontend(fe)
+    idle = {"orb": [k for k in wrappers if k != "detect"],
+            "learned": ["refine_cost", "sparse_cost", "detect", "attention"]}
+    path_kernels = {"orb": ["detect"], "learned": ["select", "gnn_layer", "sinkhorn_decode"]}
+    for name, frontend, mode in (("orb_parity", orb, "parity"), ("orb_odometry", orb, "odometry"),
+                                 ("learned_parity", learned, "parity"), ("learned_odometry", learned, "odometry")):
+        kind = name.split("_")[0]
+        cfg = MonoConfig(compose_mode=mode, n_hypotheses=MONO_HYPOTHESES)
+        def run(c=cfg, f=frontend, m="batched"):
+            return run_mono_vo(il, ts, cam, c, seed=0, frontend=f, mode=m)[1]
+
+        drive_path(wrappers, run)  # warm-up
+        out, launches, t_run = drive_path(wrappers, run)
+        for k, n in launches.items():
+            launches_by_path["mono"][k] += n
+        tracked = int(out.ok.sum().item())
+        err = ate(out.pose, gt, with_scale=True)
+        rec = dict(tracked=tracked, pairs=n_pairs, ate_sim3_m=err, pairs_per_s=n_pairs / t_run, seconds=t_run,
+                   launches=launches)
+        if not (bool(torch.isfinite(out.pose).all().item()) and tuple(out.pose.shape) == (n_pairs, 4, 4)):
+            failures.append(f"mono {name}: poses not finite or of the wrong shape")
+        if tracked < MONO_MIN_TRACKED[mode] * n_pairs:
+            failures.append(f"mono {name}: only {tracked}/{n_pairs} pairs tracked")
+        if mode == "odometry" and not err < MONO_MAX_ATE_M:
+            failures.append(f"mono {name}: Sim(3) ATE {err} m >= {MONO_MAX_ATE_M} m")
+        zero = [k for k in path_kernels[kind] if launches[k] == 0]
+        busy = [k for k in idle[kind] if launches[k] != 0]
+        if zero or busy:
+            failures.append(f"mono {name}: kernels never launched {zero}, launched and must not be {busy}")
+        bound = (f"bound {MONO_MAX_ATE_M:.4f} m" if mode == "odometry"
+                 else "printed, not held: parity composes point transforms")
+        notes = [f"{tracked}/{n_pairs} tracked (rule >= {MONO_MIN_TRACKED[mode]:.0%}), Sim(3) ATE {err:.4f} m ({bound}), "
+                 f"{n_pairs / t_run:.2f} pairs/s ({t_run:.3f} s) on {torch.cuda.get_device_name(0)} ({smi})",
+                 f"launches {launches}"]
+        if mode == "parity":
+            ms, peak_mib, shape = five_point_timing(frontend, il, cam)
+            rec.update(five_point_ms=ms, five_point_peak_mib=peak_mib, five_point_batch=list(shape))
+            notes.append(f"one 5-point estimate_relative_pose of a pair batch {list(shape)}: {ms:.3f} ms, peak memory "
+                         f"+{peak_mib:.1f} MiB")
+        if name == "orb_parity":
+            plain_cfg = cfg._replace(orb=OrbConfig(detect_path="plain"))
+            plain, _, _ = drive_path(wrappers, lambda: run_mono_vo(il, ts, cam, plain_cfg, seed=0)[1])
+            rec["plain_ok_agreement"] = (plain.ok == out.ok).float().mean().item()
+            notes.append(f"plain versions track the same pairs: {rec['plain_ok_agreement']:.3f}")
+            if rec["plain_ok_agreement"] < 1.0:
+                failures.append("mono orb_parity: the kernel and the plain version track different pairs")
+        if name == "orb_odometry":
+            scan, _, t_scan = drive_path(wrappers, lambda: run(m="scan"))
+            diff = (scan.pose - out.pose).abs().max().item()
+            rec.update(scan_seconds=t_scan, scan_max_pose_diff=diff, scan_bit_equal=torch.equal(scan.pose, out.pose))
+            notes.append(f"scan runner {t_scan:.3f} s, largest pose difference {diff:.3g}, bit-equal "
+                         f"{rec['scan_bit_equal']}")
+            if not (torch.equal(scan.ok, out.ok) and diff <= MONO_SCAN_POSE_TOL):
+                failures.append(f"mono orb_odometry: the scan runner differs from the batched one ({diff})")
+        records[name] = rec
+        log(f"mono {name}: " + "; ".join(notes))
+        torch.cuda.empty_cache()
+    print(json.dumps({"mono": records}), flush=True)
+    return failures
+
+
 SGM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "sgm_cv2.npz")
 
 
@@ -1020,14 +1154,16 @@ def render_clip(dev):
     return il[sel].contiguous(), ir[sel].contiguous(), Ts[sel], rig
 
 
-def ate(poses, gt):
+def ate(poses, gt, with_scale=False):
+    """ATE of the poses of frames 1..N-1 against the truth of frames
+    0..N-1, SE(3)-aligned (Sim(3) with ``with_scale``, for mono)."""
     from forest_slam_tpu_torch.eval.metrics import ape_translation
     from forest_slam_tpu_torch.io.tum import Trajectory
 
     ts = np.arange(gt.shape[0]) * 0.1
     est = Trajectory.from_matrices(ts[1:], poses.double().cpu().numpy())
     ref = Trajectory.from_matrices(ts, gt.double().cpu().numpy())
-    return ape_translation(est, ref, align=True, with_scale=False).rmse
+    return ape_translation(est, ref, align=True, with_scale=with_scale).rmse
 
 
 def drive_path(wrappers, run):
@@ -1380,6 +1516,9 @@ def main() -> int:
     failures += dense_phase(wrappers, launches_by_path, smi, run_learned(cfg._replace(dense_depth=True, sgm=SgmConfig()),
                                                                          frontend), report, il, ir)
     torch.cuda.empty_cache()
+
+    # monocular VO: forest-slam mono on the left frames, ORB and learned, parity and odometry
+    failures += mono_phase(wrappers, launches_by_path, smi, il, gt, rig, fe)
 
     # bench.py's 962-pair workload, learned then ORB
     records = {}

@@ -75,9 +75,8 @@ def _svd(M):
     solver a non-finite matrix."""
     bad = ~torch.isfinite(M).all(-1).all(-1)
     U, S, Vh = torch.linalg.svd(torch.where(bad[..., None, None], torch.zeros_like(M), M))
-    nan = torch.tensor(float("nan"), dtype=M.dtype, device=M.device)
-    return (torch.where(bad[..., None, None], nan, U), torch.where(bad[..., None], nan, S),
-            torch.where(bad[..., None, None], nan, Vh))
+    return (torch.where(bad[..., None, None], float("nan"), U), torch.where(bad[..., None], float("nan"), S),
+            torch.where(bad[..., None, None], float("nan"), Vh))
 
 
 def _svd_pose(M, p3, sign):

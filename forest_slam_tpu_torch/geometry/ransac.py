@@ -17,6 +17,13 @@ def gumbel_noise(shape, generator: torch.Generator | None = None, device="cuda")
     return -torch.log(-torch.log(u))
 
 
+def gumbel_per_item(n_items: int, shape, generator: torch.Generator, device="cuda") -> torch.Tensor:
+    """(n_items, *shape) Gumbel draws, each item's drawn on its own in turn,
+    so a batch of items holds the numbers a loop over them one at a time
+    would draw from the same generator."""
+    return torch.stack([gumbel_noise(tuple(shape), generator, device) for _ in range(n_items)])
+
+
 def ransac_sample_indices(gumbel: torch.Tensor, valid: torch.Tensor, sample_size: int,
                           weights: torch.Tensor | None = None) -> torch.Tensor:
     """(..., n_hypotheses, sample_size) distinct indices of valid points by

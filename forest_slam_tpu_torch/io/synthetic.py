@@ -321,6 +321,22 @@ def out_and_back_trajectory(n_forward: int = 20, n_turn: int = 12, speed: float 
     return se3_matrix(torch.as_tensor(R, device=device), torch.as_tensor(t, device=device))
 
 
+def turning_trajectory(n_frames: int, yaw_step_deg: float, device="cuda") -> torch.Tensor:
+    """(N, 4, 4) T_world_cam of a steady turn down the corridor: each frame
+    steps 0.25 m along its heading, and the heading turns ``yaw_step_deg`` a
+    frame, from -15 degrees. Every consecutive pair rotates by
+    ``yaw_step_deg``."""
+    yaw = np.radians(-15.0 + yaw_step_deg * np.arange(n_frames))
+    x = np.concatenate([[0.0], np.cumsum(0.25 * np.sin(yaw[:-1]))])
+    z = np.concatenate([[0.0], np.cumsum(0.25 * np.cos(yaw[:-1]))])
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    zero, one = np.zeros_like(cy), np.ones_like(cy)
+    R = np.stack([np.stack([cy, zero, sy], -1), np.stack([zero, one, zero], -1), np.stack([-sy, zero, cy], -1)], -2)
+    t = np.stack([x, zero, z], axis=-1)
+    return se3_matrix(torch.as_tensor(R, dtype=torch.float32, device=device),
+                      torch.as_tensor(t, dtype=torch.float32, device=device))
+
+
 class SyntheticSequence(NamedTuple):
     images_left: torch.Tensor  # (N, H, W) float32 [0, 255]
     images_right: torch.Tensor  # (N, H, W)

@@ -126,3 +126,84 @@ def test_remap_bilinear(rng):
                                atol=1e-4)
     np.testing.assert_allclose(tcam.remap_bilinear(torch.as_tensor(imgs), torch.as_tensor(src))[0].numpy(), ref,
                                atol=1e-4)
+
+
+def _rotations(rng, n, angles):
+    axes = rng.normal(size=(n, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    w = axes * np.asarray(angles, np.float64).reshape(-1, 1)
+    with enable_x64():
+        return np.asarray(jlie.so3_exp(jnp.asarray(w))), w
+
+
+def test_quaternions(rng):
+    q = rng.normal(size=(12, 4))
+    q[0] = [0, 0, 0, 1]
+    q[1] = [0, 0, 0, -3]
+    R, _ = _rotations(rng, 8, rng.uniform(0, np.pi, 8))
+    # half turns: the pivot is a diagonal entry (ties between two of them)
+    R = np.concatenate([R, np.diag([1.0, -1, -1])[None], np.diag([-1.0, 1, -1])[None], np.diag([-1.0, -1, 1])[None]])
+    with enable_x64():
+        for name in ("quat_normalize", "quat_to_matrix"):
+            np.testing.assert_allclose(getattr(tlie, name)(_t(q)).numpy(),
+                                       np.asarray(getattr(jlie, name)(jnp.asarray(q))), atol=TOL)
+        np.testing.assert_allclose(tlie.quat_multiply(_t(q[:6]), _t(q[6:])).numpy(),
+                                   np.asarray(jlie.quat_multiply(jnp.asarray(q[:6]), jnp.asarray(q[6:]))), atol=TOL)
+        ref = np.asarray(jlie.quat_from_matrix(jnp.asarray(R)))
+        got = tlie.quat_from_matrix(_t(R)).numpy()
+        np.testing.assert_allclose(got, ref, atol=TOL)
+        T = np.tile(np.eye(4), (len(R), 1, 1))
+        T[:, :3, :3] = R
+        np.testing.assert_allclose(tlie.quat_from_matrix(_t(T)).numpy(), ref, atol=TOL)
+    assert (got[:, 3] >= 0).all()
+    np.testing.assert_allclose(tlie.quat_to_matrix(_t(got)).numpy(), R, atol=1e-12)
+
+
+def test_se3_orthonormalize_and_transform_points(rng):
+    T, _ = _poses(rng, 5)
+    Tn = T + rng.normal(size=T.shape) * 1e-2
+    pts = rng.normal(size=(5, 7, 3))
+    with enable_x64():
+        np.testing.assert_allclose(tlie.se3_orthonormalize(_t(Tn)).numpy(),
+                                   np.asarray(jlie.se3_orthonormalize(jnp.asarray(Tn))), atol=TOL)
+        np.testing.assert_allclose(tlie.se3_transform_points(_t(T), _t(pts)).numpy(),
+                                   np.asarray(jlie.se3_transform_points(jnp.asarray(T), jnp.asarray(pts))), atol=TOL)
+
+
+# angles across so3_log's branches: general, the small-angle series (below
+# about 1.4e-3), zero, and the near-pi axis recovery (above pi - 1e-3)
+LOG_ANGLES = {"general": (0.3, 1.0, 2.0, 3.0), "small": (1e-7, 1e-5, 1e-4, 1.3e-3), "zero": (0.0,) * 4,
+              "near_pi": (np.pi - 1e-4, np.pi - 5e-4, np.pi - 9e-4, np.pi - 2e-5)}
+
+
+@pytest.mark.parametrize("branch", list(LOG_ANGLES))
+def test_so3_log_se3_log(rng, branch):
+    R, w = _rotations(rng, 4, LOG_ANGLES[branch])
+    T = np.array(_poses(rng, 4)[0])
+    T[:, :3, :3] = R
+    with enable_x64():
+        ref = np.asarray(jlie.so3_log(jnp.asarray(R)))
+        np.testing.assert_allclose(tlie.so3_log(_t(R)).numpy(), ref, atol=TOL)
+        np.testing.assert_allclose(tlie.se3_log(_t(T)).numpy(), np.asarray(jlie.se3_log(jnp.asarray(T))), atol=1e-11)
+    if branch != "near_pi":  # near pi the reference's axis is accurate to about sqrt(eps)
+        np.testing.assert_allclose(ref, w, atol=1e-9)
+
+
+def test_so3_log_float32_branch_tests_and_gradients(rng):
+    """In float32 the branch tests decide alike (cos theta > 1 - 1e-6 is
+    compared in float32 on both sides); values to 2e-6. Gradients of
+    so3_log (what the back end differentiates) equal jax.jacfwd's in
+    float64 at the identity, in the small-angle series, at a general angle
+    and near pi: finite everywhere, to 1e-9."""
+    angles = (0.0, 5e-4, 1.2e-3, 1.6e-3, 0.5, np.pi - 5e-4, np.pi - 2e-3)
+    R, _ = _rotations(rng, len(angles), angles)
+    R32 = R.astype(np.float32)
+    np.testing.assert_allclose(tlie.so3_log(torch.as_tensor(R32)).numpy(),
+                               np.asarray(jlie.so3_log(jnp.asarray(R32))), atol=2e-6)
+    with enable_x64():
+        jac = jax.jit(jax.jacfwd(jlie.so3_log))
+        for Ri in R:
+            ref = np.asarray(jac(jnp.asarray(Ri)))
+            got = torch.autograd.functional.jacobian(tlie.so3_log, _t(Ri)).numpy()
+            assert np.isfinite(got).all()
+            np.testing.assert_allclose(got, ref, atol=1e-9)

@@ -4,7 +4,9 @@
   flax, msgpack, cv2 or the JAX package (checked in a fresh interpreter).
 - chip_smoke.py fails, and prints no result line, where there is no CUDA
   card, and where it stands alone in a directory; the distillation entry
-  point refuses to run without a card unless given ``--device cpu``.
+  point, ``run_mono_vo`` and ``python -m forest_slam_tpu_torch.cli mono``
+  refuse to run without a card unless asked for the CPU; the CLI refuses
+  the flags the port does not take yet, naming the roadmap item.
 - The kernel build reports nvcc's own output when nvcc fails, and leaves no
   partial library behind.
 """
@@ -44,11 +46,12 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 47
+    assert n_modules >= 53
     names = out.stdout.splitlines()[1].split()
     for mod in ("frontend.select_kernel", "frontend.attention_kernel", "frontend.learned", "frontend.superglue",
                 "frontend.params", "train", "train.losses", "train.data", "train.trainer", "train.__main__",
-                "train.distill", "stereo.disparity", "stereo.depth", "stereo.rectify"):
+                "train.distill", "stereo.disparity", "stereo.depth", "stereo.rectify", "geometry.epipolar",
+                "geometry.fivepoint", "geometry.triangulation", "pipelines.mono", "utils.metrics", "cli"):
         assert "forest_slam_tpu_torch." + mod in names
 
 
@@ -87,6 +90,36 @@ def test_distill_entry_point_needs_a_card_or_the_cpu(tmp_path):
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr and "absent.msgpack" not in out.stderr
     assert not (tmp_path / "out.msgpack").exists()
+
+
+def test_mono_entry_points_need_a_card_or_the_cpu(tmp_path):
+    import numpy as np
+    import torch
+
+    from forest_slam_tpu_torch.core.camera import PinholeCamera
+    from forest_slam_tpu_torch.pipelines.mono import run_mono_vo
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cam = PinholeCamera.create(np.eye(3), width=8, height=8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_mono_vo(np.zeros((2, 8, 8), np.float32), [0.0, 0.1], cam)
+    out = subprocess.run([sys.executable, "-m", "forest_slam_tpu_torch.cli", "mono", "--synthetic", "3", "--out",
+                          str(tmp_path / "est.txt")], cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "--device cpu" in out.stderr
+    assert not (tmp_path / "est.txt").exists()
+
+
+@pytest.mark.parametrize("flags", [["--bag", "a.bag"], ["--synthetic", "3", "--max-frames", "2"],
+                                   ["--synthetic", "3", "--frame-stride", "2"],
+                                   ["--synthetic", "3", "--viewer-out", "v.html"],
+                                   ["--synthetic", "3", "--debug-matches", "d"]])
+def test_cli_refuses_flags_not_ported(tmp_path, capsys, flags):
+    from forest_slam_tpu_torch.cli import main
+
+    assert main(["mono", *flags, "--out", str(tmp_path / "est.txt"), "--device", "cpu"]) == 2
+    assert "Queue A item 9" in capsys.readouterr().err
+    assert not (tmp_path / "est.txt").exists()
 
 
 def test_build_failure_reports_nvcc_output(tmp_path, monkeypatch):
