@@ -17,6 +17,13 @@ def gumbel_noise(shape, generator: torch.Generator | None = None, device="cuda")
     return -torch.log(-torch.log(u))
 
 
+def require_draws(generator: torch.Generator | None, gumbel, uniform) -> None:
+    """Refuse a call whose draws would come from torch's global generator:
+    it takes a seeded ``generator``, or both ``gumbel`` and ``uniform``."""
+    if generator is None and (gumbel is None or uniform is None):
+        raise ValueError("pass a seeded generator, or both gumbel and uniform draws")
+
+
 def gumbel_per_item(n_items: int, shape, generator: torch.Generator, device="cuda") -> torch.Tensor:
     """(n_items, *shape) Gumbel draws, each item's drawn on its own in turn,
     so a batch of items holds the numbers a loop over them one at a time

@@ -10,8 +10,21 @@ Three phases over a stereo sequence (N, H, W):
    observations, PnP-RANSAC and the acceptance gate;
 3. chaining of the gated relative poses and world-frame map points.
 
-:func:`run_stereo_vo` is the host entry point (ORB by default);
-:func:`run_stereo_vo_device` takes any front end.
+The sequential runner (:func:`run_stereo_vo_scan`, the reference's loop)
+carries a :class:`StereoState` from frame to frame, one frame a step, in
+chunks (:func:`run_stereo_vo_chunk`) so a long sequence streams
+(:func:`run_stereo_vo_streaming` writes each chunk's poses to a TUM file as
+it lands). Its dense route keeps the previous frame's whole depth map and
+reads it at the keypoints. As in the JAX package, it neither refines the
+matches nor normalises the exposure. Each of its steps draws its PnP noise
+in turn from the state's generator, so streaming in chunks gives the scan's
+poses exactly; the batched runner draws a pair batch at a time, so the two
+runners draw differently.
+
+:func:`run_stereo_vo` is the host entry point (ORB by default; ``ba=`` adds
+sliding-window bundle adjustment, backend/window.py);
+:func:`run_stereo_vo_device` takes any front end and returns, when asked,
+the artifacts the back end consumes.
 """
 
 from __future__ import annotations
@@ -27,8 +40,9 @@ from forest_slam_tpu_torch.frontend.base import FrontendFns, orb_frontend
 from forest_slam_tpu_torch.frontend.orb import OrbConfig
 from forest_slam_tpu_torch.frontend.refine import RefineConfig, refine_matches_quality
 from forest_slam_tpu_torch.geometry.pnp import solve_pnp_ransac
+from forest_slam_tpu_torch.geometry.ransac import require_draws
 from forest_slam_tpu_torch.io.tum import Trajectory
-from forest_slam_tpu_torch.stereo.depth import depth_at_keypoints, disparity_to_depth
+from forest_slam_tpu_torch.stereo.depth import backproject_keypoints, depth_at_keypoints, disparity_to_depth
 from forest_slam_tpu_torch.stereo.disparity import SgmConfig, sgm_disparity
 from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig, sparse_depth_at_keypoints
 
@@ -210,12 +224,16 @@ def chain_and_map(pairs: PairVO, initial: torch.Tensor) -> StereoStepOut:
 
 
 @torch.no_grad()
-def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, generator: torch.Generator,
-                         frontend: FrontendFns, frame_batch: int = 8, pair_batch: int = 8) -> StereoStepOut:
+def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, generator: torch.Generator | None,
+                         frontend: FrontendFns, frame_batch: int = 8, pair_batch: int = 8,
+                         return_artifacts: bool = False, gumbel=None, uniform=None):
     """Whole-sequence VO of (N, H, W) stereo stacks in [0, 255]: frames
     1..N-1 relative to frame 0. Batch loops stand in for the JAX runner's
-    ``lax.map``; the PnP draws come from ``generator``. With
-    ``cfg.photo_norm`` every frame is exposure-compensated first."""
+    ``lax.map``; the PnP draws come from ``generator`` or, when it is None,
+    from ``gumbel`` (N-1, n_hypotheses, K) and ``uniform`` (N-1, K). With
+    ``cfg.photo_norm`` every frame is exposure-compensated first. With
+    ``return_artifacts``: (outputs, backend.window.StereoArtifacts)."""
+    require_draws(generator, gumbel, uniform)
     if cfg.photo_norm:
         images_l, images_r = photo_normalize_stack(images_l), photo_normalize_stack(images_r)
     n = images_l.shape[0]
@@ -233,9 +251,146 @@ def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, 
         outs.append(pair_from_slab(
             prev.feats, prev.z, prev.z_ok, cur, rig, cfg, frontend, image_shape,
             images_l[s:e] if refine else None, images_l[s + 1:e + 1] if refine else None,
-            generator=generator,
+            generator=generator, gumbel=None if gumbel is None else gumbel[s:e],
+            uniform=None if uniform is None else uniform[s:e],
         ))
-    return chain_and_map(_cat(outs), torch.eye(4, device=images_l.device))
+    pairs = _cat(outs)
+    out = chain_and_map(pairs, torch.eye(4, device=images_l.device))
+    if not return_artifacts:
+        return out
+    from forest_slam_tpu_torch.backend.window import StereoArtifacts
+
+    return out, StereoArtifacts(xy=feats.xy, valid=feats.valid, z=slab.z, z_ok=slab.z_ok, matches=pairs.matches,
+                                feats=feats)
+
+
+class StereoState(NamedTuple):
+    """What the sequential runner carries from one frame to the next."""
+
+    prev: Any  # previous frame's features (batch of one)
+    prev_depth: torch.Tensor  # sparse: (1, K) per keypoint; dense: (1, H, W) depth map
+    prev_depth_ok: torch.Tensor  # sparse: (1, K) validity; dense: (1, 1) unused
+    cumulative: torch.Tensor  # (4, 4)
+    generator: torch.Generator | None  # the PnP draws
+
+
+def _depth_state(feats, img_l, img_r, rig: StereoRig, cfg: StereoConfig):
+    """A frame's depth record for the state: (1, H, W) dense depth or the
+    (1, K) sparse depths at its keypoints, with their validity."""
+    if cfg.dense_depth:
+        depth = disparity_to_depth(sgm_disparity(img_l, img_r, cfg.sgm), rig.left.fx, rig.baseline)
+        return depth, torch.ones((1, 1), dtype=torch.bool, device=depth.device)
+    return sparse_depth_at_keypoints(img_l, img_r, feats.xy, rig.left.fx, rig.baseline, cfg.sparse)
+
+
+def _backproject_prev(state: StereoState, rig: StereoRig, cfg: StereoConfig):
+    """The previous keypoints as camera-frame points, with their depth gate."""
+    if cfg.dense_depth:
+        return backproject_keypoints(state.prev.xy, state.prev_depth, rig.left, cfg.min_depth, cfg.max_depth)
+    z = state.prev_depth
+    ok = state.prev_depth_ok & (z > cfg.min_depth) & (z < cfg.max_depth)
+    return backproject_depth(state.prev.xy, z, rig.left), ok
+
+
+def stereo_vo_init(img_l, img_r, rig: StereoRig, cfg: StereoConfig, frontend: FrontendFns,
+                   generator: torch.Generator | None) -> StereoState:
+    """The state seeded from the first stereo frame (H, W) x2."""
+    img_l, img_r = img_l[None], img_r[None]
+    feats = frontend.extract(img_l)
+    depth, depth_ok = _depth_state(feats, img_l, img_r, rig, cfg)
+    return StereoState(prev=feats, prev_depth=depth, prev_depth_ok=depth_ok,
+                       cumulative=torch.eye(4, device=img_l.device), generator=generator)
+
+
+def stereo_step(state: StereoState, img_l, img_r, rig: StereoRig, cfg: StereoConfig, frontend: FrontendFns,
+                gumbel=None, uniform=None) -> tuple[StereoState, StereoStepOut]:
+    """One frame (H, W) x2 of the sequential runner: its features and depth
+    record, the previous frame's keypoints back-projected through the
+    previous depth, match and PnP, and the chained pose and map points
+    (stereo_slam.py:210-314). ``gumbel`` (1, n_hypotheses, K) and ``uniform``
+    (1, K) replace the draws of the state's generator, which is then None."""
+    require_draws(state.generator, gumbel, uniform)
+    img_l, img_r = img_l[None], img_r[None]
+    feats = frontend.extract(img_l)
+    depth, depth_ok = _depth_state(feats, img_l, img_r, rig, cfg)
+    pts3d, prev_ok = _backproject_prev(state, rig, cfg)
+    pair = match_and_pnp(state.prev, pts3d, prev_ok, feats, rig, cfg, frontend, tuple(img_l.shape[1:]),
+                         generator=state.generator, gumbel=gumbel, uniform=uniform)
+    cumulative = mm(state.cumulative, pair.rel[0])
+    world = mm(pts3d, cumulative[:3, :3].transpose(0, 1)) + cumulative[:3, 3]
+    out = StereoStepOut(pose=cumulative[None], map_points=world, map_valid=pair.valid & pair.ok[:, None],
+                        n_matches=pair.n_matches, n_inliers=pair.n_inliers, ok=pair.ok)
+    return state._replace(prev=feats, prev_depth=depth, prev_depth_ok=depth_ok, cumulative=cumulative), out
+
+
+@torch.no_grad()
+def run_stereo_vo_chunk(state: StereoState, images_l, images_r, rig: StereoRig, cfg: StereoConfig,
+                        frontend: FrontendFns, gumbel=None, uniform=None) -> tuple[StereoState, StereoStepOut]:
+    """Advance the sequential runner over a chunk of (C, H, W) frames,
+    carrying the state across chunks; ``gumbel`` (C, n_hypotheses, K) and
+    ``uniform`` (C, K) replace the draws."""
+    outs = []
+    for i in range(images_l.shape[0]):
+        state, out = stereo_step(state, images_l[i], images_r[i], rig, cfg, frontend,
+                                 None if gumbel is None else gumbel[i:i + 1],
+                                 None if uniform is None else uniform[i:i + 1])
+        outs.append(out)
+    return state, _cat(outs)
+
+
+def run_stereo_vo_scan(images_l, images_r, rig: StereoRig, cfg: StereoConfig, generator: torch.Generator | None,
+                       frontend: FrontendFns, gumbel=None, uniform=None) -> StereoStepOut:
+    """Sequential stereo VO over (N, H, W) stacks: the per-pair outputs of
+    frames 1..N-1, one frame at a time."""
+    state = stereo_vo_init(images_l[0], images_r[0], rig, cfg, frontend, generator)
+    return run_stereo_vo_chunk(state, images_l[1:], images_r[1:], rig, cfg, frontend, gumbel, uniform)[1]
+
+
+def _on_device(images_l, images_r, device):
+    """The stacks as float32 tensors on ``device``, else on the images'
+    device when they are tensors, else on the card (which must exist)."""
+    if device is None:
+        device = images_l.device if isinstance(images_l, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("stereo VO runs on a CUDA card, and none is available; pass device='cpu' to run on the "
+                           "CPU")
+    return tuple(torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x), dtype=torch.float32,
+                                 device=device) for x in (images_l, images_r))
+
+
+def run_stereo_vo_streaming(images_l, images_r, timestamps, rig: StereoRig, cfg: StereoConfig, out_path: str,
+                            seed: int = 0, frontend: FrontendFns | None = None, chunk: int = 64, on_chunk=None,
+                            device=None) -> tuple[Trajectory, StereoStepOut]:
+    """Crash-safe streaming VO: the sequential runner advances ``chunk``
+    frames at a time, and each chunk's trajectory rows land in ``out_path``
+    (flushed and synced) before the next starts, so a crash loses at most
+    one chunk (the reference saves at the end, stereo_slam.py:352-360).
+    ``on_chunk(timestamps so far, poses so far)`` fires after each chunk.
+    The per-pair outputs come back on the CPU."""
+    from forest_slam_tpu_torch.io.tum import StreamingTumWriter
+
+    images_l, images_r = _on_device(images_l, images_r, device)
+    if frontend is None:
+        frontend = orb_frontend(cfg.orb, cfg.max_match_distance)
+    generator = torch.Generator(device=images_l.device)
+    generator.manual_seed(seed)
+    n = images_l.shape[0]
+    ts = np.asarray(timestamps)
+    state = stereo_vo_init(images_l[0], images_r[0], rig, cfg, frontend, generator)
+    parts = []
+    with StreamingTumWriter(out_path) as writer:
+        for s in range(1, n, chunk):
+            state, outs = run_stereo_vo_chunk(state, images_l[s:s + chunk], images_r[s:s + chunk], rig, cfg,
+                                              frontend)
+            outs = _map(lambda a: a.cpu(), outs)
+            writer.append(ts[s:s + outs.pose.shape[0]], outs.pose.double().numpy())
+            parts.append(outs)
+            if on_chunk is not None:
+                done = s + outs.pose.shape[0]
+                on_chunk(ts[1:done], torch.cat([o.pose for o in parts]).double().numpy())
+    outs = _cat(parts)
+    return Trajectory.from_matrices(ts[1:], outs.pose.double().numpy()), outs
 
 
 def run_stereo_vo(images_l, images_r, timestamps, rig: StereoRig, cfg: StereoConfig = StereoConfig(), seed: int = 0,
@@ -244,22 +399,30 @@ def run_stereo_vo(images_l, images_r, timestamps, rig: StereoRig, cfg: StereoCon
     """Host entry point: the trajectory of frames 1..N-1 and the per-pair
     outputs of (N, H, W) stereo stacks in [0, 255] (arrays or tensors).
     The default front end is ORB (``cfg.orb``, ``cfg.max_match_distance``);
-    pass ``frontend=learned_frontend(fe)`` for SuperPoint + SuperGlue. Runs
-    on ``device``, else on the images' device when they are tensors, else on
-    the card. The PnP draws come from a generator seeded with ``seed``."""
-    if mode != "batched":
-        raise NotImplementedError(f"mode={mode!r}: the port runs the batched mode only; the sequential scan "
-                                  "is left for a later slice")
-    if ba is not None:
-        raise NotImplementedError("ba: sliding-window bundle adjustment is left for a later slice")
-    if device is None:
-        device = images_l.device if isinstance(images_l, torch.Tensor) else "cuda"
-    images_l, images_r = (torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x),
-                                          dtype=torch.float32, device=device) for x in (images_l, images_r))
+    pass ``frontend=learned_frontend(fe)`` for SuperPoint + SuperGlue.
+    ``mode``: "batched" (frame-parallel) or "scan" (sequential). ``ba``: a
+    backend.window.WindowBAConfig refines the trajectory with sliding-window
+    bundle adjustment, the anchors re-matched by the front end (it takes the
+    batched runner). Runs on ``device``, else on the images' device when
+    they are tensors, else on the card. The PnP draws come from a generator
+    seeded with ``seed``."""
+    if mode not in ("batched", "scan"):
+        raise ValueError(f"unknown mode {mode!r}")
+    images_l, images_r = _on_device(images_l, images_r, device)
     if frontend is None:
         frontend = orb_frontend(cfg.orb, cfg.max_match_distance)
     generator = torch.Generator(device=images_l.device)
     generator.manual_seed(seed)
-    outs = run_stereo_vo_device(images_l, images_r, rig, cfg, generator, frontend, frame_batch, pair_batch)
+    if ba is not None:
+        from forest_slam_tpu_torch.backend.window import refine_trajectory_ba
+
+        outs, art = run_stereo_vo_device(images_l, images_r, rig, cfg, generator, frontend, frame_batch, pair_batch,
+                                         return_artifacts=True)
+        outs = outs._replace(pose=refine_trajectory_ba(outs.pose, art, rig.left, ba, frontend=frontend,
+                                                       image_shape=tuple(images_l.shape[1:]), pair_batch=pair_batch))
+    elif mode == "batched":
+        outs = run_stereo_vo_device(images_l, images_r, rig, cfg, generator, frontend, frame_batch, pair_batch)
+    else:
+        outs = run_stereo_vo_scan(images_l, images_r, rig, cfg, generator, frontend)
     traj = Trajectory.from_matrices(np.asarray(timestamps)[1:], outs.pose.double().cpu().numpy())
     return traj, outs

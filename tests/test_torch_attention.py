@@ -35,6 +35,7 @@ from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward, m
 from forest_slam_tpu_torch.frontend.gnn_kernel import split_layer_params
 from forest_slam_tpu_torch.frontend.superglue import SuperGlueConfig, gnn_layer_unfused
 from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, read_checkpoint, superglue_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B, HEADS, K, DH = 2, 4, 128, 64
 SCALE = 1.0 / DH ** 0.5

@@ -26,6 +26,7 @@ from forest_slam_tpu.io import tum as jtum
 from forest_slam_tpu_torch import bench
 from forest_slam_tpu_torch.eval import metrics as tmetrics
 from forest_slam_tpu_torch.io import tum as ttum
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

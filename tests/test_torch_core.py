@@ -13,6 +13,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from _torch_threads import one_torch_thread  # noqa: F401
 def enable_x64():
     return jax.enable_x64(True)
 

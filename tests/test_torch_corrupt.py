@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from forest_slam_tpu.utils import corrupt as jc
 from forest_slam_tpu_torch.utils import corrupt as tc
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N, H, W = 3, 48, 64
 

@@ -18,7 +18,10 @@ version's autograd bit for bit. One training step of the full-width recipe
 on the card agrees with the CPU's within chip_smoke.TRAIN_AGREEMENT, one
 distillation step of the round-5 recipe within
 chip_smoke.DISTILL_AGREEMENT; the SGM disparity (plain PyTorch) on the card
-equals the CPU's on the OpenCV fixture.
+equals the CPU's on the OpenCV fixture. The back end (``-k slam``): the pose
+graph, batched BA and window BA on the card within 1e-4 of the CPU, loop
+verification's batch with the same draws and the learned matcher's batch
+against the CPU's plain versions, streaming equal to the scan.
 """
 
 import pytest
@@ -811,3 +814,194 @@ def test_mono_learned_run_card_matches_cpu(cuda):
     assert diff.max() < 1.0, diff
     assert err_cpu.mean() < 0.75 and err_card.mean() < 0.75, (err_card, err_cpu)
     assert err_card.mean() <= err_cpu.mean() + 0.15, (err_card, err_cpu)
+
+
+def _slam_graph(rng, n=40):
+    """A drifting chain of n poses with odometry and four loop edges that
+    measure the true relative motions (float32 tensors): (poses, ei, ej, Z,
+    w)."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.core.lie import se3_exp
+
+    steps = torch.as_tensor(np.concatenate([rng.normal(0, 0.02, (n - 1, 3)) + [0, 0, 0.5],
+                                            rng.normal(0, 0.05, (n - 1, 3))], 1))
+    T = [torch.eye(4, dtype=torch.float64)]
+    for xi in steps:
+        T.append(T[-1] @ se3_exp(xi))
+    truth = torch.stack(T)
+    ei = list(range(n - 1)) + [0, 5, 10, 20]
+    ej = list(range(1, n)) + [30, 35, 39, 33]
+    Z = torch.stack([torch.linalg.inv(truth[i]) @ truth[j] for i, j in zip(ei, ej)])
+    w = torch.ones(len(ei))
+    w[n - 1:] = 3.0
+    drift = truth @ se3_exp(torch.as_tensor(rng.normal(0, 0.03, (n, 6))))
+    drift[0] = truth[0]
+    return drift.float(), torch.tensor(ei), torch.tensor(ej), Z.float(), w, truth.float()
+
+
+def test_slam_pose_graph_card_equals_cpu(cuda):
+    """optimize_pose_graph on a 40-node drifting chain with four loop edges
+    (a 234-wide solve), card against CPU: the normal matrix is summed in
+    float64 from one-hot products, in the same order on both; the solve and
+    the lie algebra round differently. The edges agree with one another (the
+    truth), so Gauss-Newton converges: where edges conflict, float32
+    Gauss-Newton wanders at so3_log's arccos resolution in the JAX package
+    and the port alike (ROADMAP Queue C). Poses within 1e-4 of each other
+    and of the truth, the final cost below 1e-6 of the initial."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.backend.pose_graph import PoseGraph, optimize_pose_graph
+
+    dev, _ = cuda
+    *g, truth = _slam_graph(np.random.default_rng(0))
+    cpu = optimize_pose_graph(PoseGraph(*g))
+    card = optimize_pose_graph(PoseGraph(*(a.to(dev) for a in g)))
+    diff = (card.poses.cpu() - cpu.poses).abs().max().item()
+    costs = [float(x) for x in (cpu.initial_cost, cpu.final_cost, card.final_cost)]
+    assert diff < 1e-4 and (cpu.poses - truth).abs().max() < 1e-4, (diff, costs)
+    assert costs[1] < 1e-6 * costs[0] and costs[2] < 1e-6 * costs[0], costs
+
+
+def test_slam_ba_card_equals_cpu(cuda):
+    """ba_solve on a batch of three windows (5 poses, 300 landmarks, depths,
+    Huber), card against CPU: poses within 1e-4, costs within 1e-4
+    relative."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.backend.ba import BAProblem, ba_solve
+    from forest_slam_tpu_torch.core.camera import PinholeCamera, project_points
+    from forest_slam_tpu_torch.core.lie import se3_exp
+
+    dev, _ = cuda
+    rng = np.random.default_rng(1)
+    B, M, P = 3, 5, 300
+    X = torch.as_tensor(np.stack([np.column_stack([rng.uniform(-4, 4, P), rng.uniform(-2, 2, P),
+                                                   rng.uniform(3, 20, P)]) for _ in range(B)]))
+    T = se3_exp(torch.as_tensor(np.stack([[[0, 0, -0.3 * m, 0, 0.01 * m, 0] for m in range(M)]] * B), dtype=torch.float64))
+    cam = PinholeCamera.create(np.array([[320.0, 0, 159.5], [0, 320.0, 119.5], [0, 0, 1]]),
+                               [-0.03, 0.01, 5e-4, -5e-4, 0.0], 320, 240, device="cpu", dtype=torch.float64)
+    pc = (T[:, :, None, :3, :3] * X[:, None, :, None, :]).sum(-1) + T[:, :, None, :3, 3]
+    obs = project_points(pc, cam) + torch.as_tensor(rng.normal(0, 0.3, (B, M, P, 2)))
+    T0 = T @ se3_exp(torch.as_tensor(np.concatenate([rng.normal(0, 0.05, (B, M, 3)), rng.normal(0, 0.02, (B, M, 3))], -1)))
+    T0[:, 0] = T[:, 0]
+    args = dict(poses=T0, points=X + torch.as_tensor(rng.normal(0, 0.05, X.shape)), observations=obs,
+                mask=torch.as_tensor(rng.random((B, M, P)) > 0.05), depths=pc[..., 2] * (1 + torch.as_tensor(rng.normal(0, 0.01, (B, M, P)))),
+                depth_mask=torch.as_tensor(rng.random((B, M, P)) > 0.2))
+    f32 = lambda d: {k: (v.float() if v.is_floating_point() else v).to(d) for k, v in args.items()}  # noqa: E731
+    cam32 = lambda d: PinholeCamera(K=cam.K.float().to(d), dist=cam.dist.float().to(d), width=320, height=240)  # noqa: E731
+    cpu = ba_solve(BAProblem(cam=cam32("cpu"), huber_px=1.0, **f32("cpu")), iters=8)
+    card = ba_solve(BAProblem(cam=cam32(dev), huber_px=1.0, **f32(dev)), iters=8)
+    assert (cpu.final_cost < cpu.initial_cost).all()
+    assert (card.poses.cpu() - cpu.poses).abs().max() < 1e-4
+    assert ((card.final_cost.cpu() / cpu.final_cost - 1).abs() < 1e-4).all()
+
+
+def _slam_clip(dev, n=13, H=160, W=224, seed=3):
+    from forest_slam_tpu_torch.io.synthetic import render_sequence
+
+    seq = render_sequence(n, H, W, seed=seed, speed=0.25, device="cpu")
+    move = lambda r: r._replace(left=r.left._replace(K=r.left.K.to(dev), dist=r.left.dist.to(dev)),  # noqa: E731
+                                right=r.right._replace(K=r.right.K.to(dev), dist=r.right.dist.to(dev)),
+                                T_left_right=r.T_left_right.to(dev))
+    return seq, move
+
+
+def test_slam_window_ba_card_equals_cpu(cuda):
+    """refine_trajectory_ba with the anchors re-matched (ORB, Hamming: the
+    same matches on both), on the card against the CPU over the same
+    artifacts (13 corridor frames at 224x160, three windows): refined poses
+    within 1e-4."""
+    from forest_slam_tpu_torch.backend.window import StereoArtifacts, WindowBAConfig, refine_trajectory_ba
+    from forest_slam_tpu_torch.frontend.base import orb_frontend
+    from forest_slam_tpu_torch.frontend.orb import OrbConfig
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo_device
+
+    dev, _ = cuda
+    seq, move = _slam_clip(dev)
+    cfg = StereoConfig(orb=OrbConfig(n_features=384, n_levels=4), n_hypotheses=256, compose_mode="odometry")
+    front = orb_frontend(cfg.orb)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    outs, art = run_stereo_vo_device(seq.images_left.to(dev), seq.images_right.to(dev), move(seq.rig), cfg, g, front,
+                                     return_artifacts=True)
+    card = refine_trajectory_ba(outs.pose, art, move(seq.rig).left, WindowBAConfig(), frontend=front)
+    to_cpu = lambda t: type(t)(*(x.cpu() for x in t))  # noqa: E731
+    cpu_art = StereoArtifacts(*(x.cpu() for x in art[:5]), feats=to_cpu(art.feats))
+    cpu = refine_trajectory_ba(outs.pose.cpu(), cpu_art, seq.rig.left, WindowBAConfig(), frontend=front)
+    assert (card - outs.pose).abs().max() > 1e-4
+    assert (card.cpu() - cpu).abs().max() < 1e-4
+
+
+def test_slam_loop_verification_card_equals_cpu(cuda):
+    """verify_loops over six candidate pairs in one batch, card against CPU
+    with the same draws: ORB (Hamming, exact matches) accepted flags equal,
+    the accepted pairs' inliers within 2 and edges within 1e-3; and the
+    learned matcher (the flagship at K=512) over the same pairs' features
+    (extracted on the CPU) in one batch on the card, through gnn_layer and
+    sinkhorn_decode, against the CPU's plain versions: at least 97% of the
+    valid keypoints' matches equal (the layer's bf16 rounding)."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.backend.loop_closure import LoopClosureConfig, verify_loops
+    from forest_slam_tpu_torch.frontend.base import learned_frontend, orb_frontend
+    from forest_slam_tpu_torch.frontend.orb import OrbConfig
+    from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, frame_features
+
+    dev, _ = cuda
+    seq, move = _slam_clip(dev, n=7)
+    pairs = torch.tensor([[0, 2], [1, 3], [0, 4], [2, 4], [3, 6], [0, 6]])
+    C, HYP = pairs.shape[0], 256
+    rng = np.random.default_rng(0)
+    cfg = LoopClosureConfig(n_hypotheses=HYP, min_inliers=25)
+    scfg = StereoConfig(orb=OrbConfig(n_features=384, n_levels=4))
+    out = []
+    for d in ("cpu", dev):
+        rig = move(seq.rig) if d != "cpu" else seq.rig
+        front = orb_frontend(scfg.orb)
+        feats, z, z_ok = frame_features(seq.images_left.to(d), seq.images_right.to(d), rig, scfg, front)
+        K = feats.xy.shape[1]
+        G = torch.as_tensor(-np.log(-np.log(np.random.default_rng(0).uniform(1e-12, 1.0, (HYP, K)))), dtype=torch.float32)
+        U = torch.as_tensor(np.random.default_rng(1).uniform(1e-9, 1.0, K), dtype=torch.float32)
+        out.append(verify_loops(pairs.to(d), torch.ones(C, dtype=torch.bool, device=d), feats, z, z_ok, rig.left, front,
+                                (160, 224), cfg, None, gumbel=G.to(d).expand(C, -1, -1), uniform=U.to(d).expand(C, -1)))
+    (cZ, cn, ca), (gZ, gn, ga) = out
+    assert ca[:2].all() and torch.equal(ga.cpu(), ca), (ca, ga, cn, gn)
+    # an accepted pair's inliers within 2; a weak rejected pair may move by
+    # more (13 and 16 of 256 hypotheses' near-ties, pair (0, 4) on the H100)
+    assert (gn.cpu() - cn)[ca].abs().max() <= 2, (cn, gn)
+    assert (gZ.cpu()[ca] - cZ[ca]).abs().max() < 1e-3
+    # the learned matcher on the same features (the CPU's extraction) on both devices
+    fes = {d: load_learned_frontend(FLAGSHIP_PATH, (160, 224), 512, device=d) for d in ("cpu", dev)}
+    with torch.no_grad():
+        f = fes["cpu"].extract(seq.images_left)
+        sel = lambda i, d: type(f)(*(a[pairs[:, i]].to(d) for a in f))  # noqa: E731
+        matches = [learned_frontend(fes[d]).match(sel(0, d), sel(1, d), (160, 224)).cpu() for d in ("cpu", dev)]
+    valid = f.valid[pairs[:, 0]]
+    assert ((matches[0] >= 0).sum(-1) >= 50).all()  # 59-77 a pair on the CPU
+    agree = (matches[0] == matches[1])[valid].float().mean()
+    assert agree >= 0.97, agree
+
+
+def test_slam_streaming_equals_scan_on_card(cuda, tmp_path):
+    """The sequential runner on the card: streaming in chunks of 3 gives the
+    scan's poses exactly (the same steps, the same generator), tracks the
+    batched run's pairs, and writes the trajectory it returns."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.frontend.orb import OrbConfig
+    from forest_slam_tpu_torch.io.tum import read_tum
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo, run_stereo_vo_streaming
+
+    dev, _ = cuda
+    seq, move = _slam_clip(dev, n=9)
+    il, ir, rig = seq.images_left.to(dev), seq.images_right.to(dev), move(seq.rig)
+    cfg = StereoConfig(orb=OrbConfig(n_features=384, n_levels=4), n_hypotheses=256, compose_mode="odometry")
+    path = str(tmp_path / "stream.txt")
+    traj, stream = run_stereo_vo_streaming(il, ir, seq.timestamps, rig, cfg, path, seed=2, chunk=3)
+    _, scan = run_stereo_vo(il, ir, seq.timestamps, rig, cfg, seed=2, mode="scan")
+    _, batched = run_stereo_vo(il, ir, seq.timestamps, rig, cfg, seed=2)
+    assert torch.equal(stream.pose, scan.pose.cpu()) and torch.equal(stream.ok, scan.ok.cpu())
+    assert torch.equal(scan.ok, batched.ok) and bool(scan.ok.all())
+    assert np.abs(read_tum(path).positions - traj.positions).max() < 1e-5

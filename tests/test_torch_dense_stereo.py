@@ -50,6 +50,7 @@ from forest_slam_tpu_torch.pipelines import stereo as tst
 from forest_slam_tpu_torch.stereo import depth as TD
 from forest_slam_tpu_torch.stereo import rectify as TR
 from forest_slam_tpu_torch.stereo.disparity import SgmConfig, sgm_disparity
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 160, 224
 

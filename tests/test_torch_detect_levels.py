@@ -28,6 +28,7 @@ from forest_slam_tpu_torch.frontend.detect_kernel import (
     level_table,
 )
 from forest_slam_tpu_torch.frontend.fast import FAST_OFFSETS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pyramid_shapes(H, W, n_levels=8):

@@ -52,6 +52,7 @@ from forest_slam_tpu_torch.train import data as TD
 from forest_slam_tpu_torch.train import distill as T
 from forest_slam_tpu_torch.train.trainer import superpoint_init_
 from forest_slam_tpu_torch.utils.filters import map_coordinates_linear
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CH, DD = (8, 8, 16, 16), 32
 H, W = 48, 64

@@ -40,18 +40,9 @@ from forest_slam_tpu.geometry import ransac as jransac
 from forest_slam_tpu_torch.geometry import epipolar as tep
 from forest_slam_tpu_torch.geometry import fivepoint as tfp
 from forest_slam_tpu_torch.geometry import ransac as transac
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N, S, HYP, THR = 200, 128, 128, 1.0 / 640.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's small tensors: with test workers
-    sharing the cores, OpenMP's threads contend and slow these ops tenfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def two_view(rng, planar, noise, outlier_frac=0.0):

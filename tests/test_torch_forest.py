@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from forest_slam_tpu.io import synthetic as jsyn
 from forest_slam_tpu_torch.io import synthetic as tsyn
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 48, 64
 

@@ -4,9 +4,10 @@
   flax, msgpack, cv2 or the JAX package (checked in a fresh interpreter).
 - chip_smoke.py fails, and prints no result line, where there is no CUDA
   card, and where it stands alone in a directory; the distillation entry
-  point, ``run_mono_vo`` and ``python -m forest_slam_tpu_torch.cli mono``
-  refuse to run without a card unless asked for the CPU; the CLI refuses
-  the flags the port does not take yet, naming the roadmap item.
+  point, ``run_mono_vo``, ``run_stereo_vo``, ``run_slam`` and ``python -m
+  forest_slam_tpu_torch.cli mono|stereo|slam`` refuse to run without a card
+  unless asked for the CPU; the CLI refuses the flags the port does not
+  take yet, naming the roadmap item.
 - The kernel build reports nvcc's own output when nvcc fails, and leaves no
   partial library behind.
 """
@@ -17,6 +18,7 @@ import subprocess
 import sys
 
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "cv2", "forest_slam_tpu")
@@ -46,12 +48,14 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 53
+    assert n_modules >= 62
     names = out.stdout.splitlines()[1].split()
     for mod in ("frontend.select_kernel", "frontend.attention_kernel", "frontend.learned", "frontend.superglue",
                 "frontend.params", "train", "train.losses", "train.data", "train.trainer", "train.__main__",
                 "train.distill", "stereo.disparity", "stereo.depth", "stereo.rectify", "geometry.epipolar",
-                "geometry.fivepoint", "geometry.triangulation", "pipelines.mono", "utils.metrics", "cli"):
+                "geometry.fivepoint", "geometry.triangulation", "pipelines.mono", "utils.metrics", "cli",
+                "backend", "backend.mapping", "backend.pose_graph", "backend.ba", "backend.window",
+                "backend.loop_closure", "backend.relocalize", "io.ply", "pipelines.slam"):
         assert "forest_slam_tpu_torch." + mod in names
 
 
@@ -110,6 +114,29 @@ def test_mono_entry_points_need_a_card_or_the_cpu(tmp_path):
     assert not (tmp_path / "est.txt").exists()
 
 
+def test_stereo_and_slam_entry_points_need_a_card_or_the_cpu(tmp_path):
+    import numpy as np
+    import torch
+
+    from forest_slam_tpu_torch.io.synthetic import default_rig
+    from forest_slam_tpu_torch.pipelines.slam import run_slam
+    from forest_slam_tpu_torch.pipelines.stereo import run_stereo_vo
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    rig = default_rig(8, 8, device="cpu")
+    img = np.zeros((2, 8, 8), np.float32)
+    for run in (run_stereo_vo, run_slam):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(img, img, [0.0, 0.1], rig)
+    for cmd in ("stereo", "slam"):
+        out = subprocess.run([sys.executable, "-m", "forest_slam_tpu_torch.cli", cmd, "--synthetic", "3", "--out",
+                              str(tmp_path / "est.txt")], cwd=ROOT, env=_env(), capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0 and "--device cpu" in out.stderr
+    assert not (tmp_path / "est.txt").exists()
+
+
 @pytest.mark.parametrize("flags", [["--bag", "a.bag"], ["--synthetic", "3", "--max-frames", "2"],
                                    ["--synthetic", "3", "--frame-stride", "2"],
                                    ["--synthetic", "3", "--viewer-out", "v.html"],
@@ -118,6 +145,18 @@ def test_cli_refuses_flags_not_ported(tmp_path, capsys, flags):
     from forest_slam_tpu_torch.cli import main
 
     assert main(["mono", *flags, "--out", str(tmp_path / "est.txt"), "--device", "cpu"]) == 2
+    assert "Queue A item 9" in capsys.readouterr().err
+    assert not (tmp_path / "est.txt").exists()
+
+
+@pytest.mark.parametrize("cmd, flags", [("stereo", ["--bag", "a.bag"]), ("stereo", ["--synthetic", "3", "--rectify"]),
+                                        ("stereo", ["--synthetic", "3", "--viewer-out", "v.html", "--viewer-follow"]),
+                                        ("slam", ["--synthetic", "3", "--debug-matches", "d"]),
+                                        ("slam", ["--synthetic", "3", "--viewer-follow"])])
+def test_stereo_and_slam_cli_refuse_flags_not_ported(tmp_path, capsys, cmd, flags):
+    from forest_slam_tpu_torch.cli import main
+
+    assert main([cmd, *flags, "--out", str(tmp_path / "est.txt"), "--device", "cpu"]) == 2
     assert "Queue A item 9" in capsys.readouterr().err
     assert not (tmp_path / "est.txt").exists()
 

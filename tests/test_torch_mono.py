@@ -54,20 +54,11 @@ from forest_slam_tpu_torch.frontend.orb import OrbConfig
 from forest_slam_tpu_torch.io.synthetic import default_rig, make_corridor_world, render_stereo, turning_trajectory
 from forest_slam_tpu_torch.pipelines import mono as tmono
 from forest_slam_tpu_torch.utils.metrics import write_metrics_jsonl
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES, H, W, HYP, K = 8, 160, 224, 128, 384
 ORB = dict(n_features=K, n_levels=4)
 YAW_STEP_DEG = 4.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's small tensors: with test workers
-    sharing the cores, OpenMP's threads contend and slow these ops tenfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class Seq(NamedTuple):

@@ -48,6 +48,7 @@ from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_f
 from forest_slam_tpu_torch.pipelines import stereo as tst
 from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig
 from forest_slam_tpu_torch.utils.filters import resize_bilinear
+from _torch_threads import one_torch_thread  # noqa: F401
 
 K = 128
 SCALES = (1.0, 2.0)

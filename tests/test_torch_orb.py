@@ -36,6 +36,7 @@ from forest_slam_tpu_torch.frontend import orb as torb
 from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_plain
 from forest_slam_tpu_torch.frontend.fast import fast_score_map, harris_response, nms_topk
 from forest_slam_tpu_torch.utils.filters import resize_bilinear
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

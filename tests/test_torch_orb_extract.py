@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from forest_slam_tpu.frontend import orb as jorb
 from forest_slam_tpu.io.synthetic import render_sequence
 from forest_slam_tpu_torch.frontend import orb as torb
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _unpack(desc):

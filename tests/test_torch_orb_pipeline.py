@@ -15,7 +15,8 @@ by phase:
 - given the same matches: validity equal and gated relative poses (then the
   chained trajectory) to 1e-3;
 - the host entry point ``run_stereo_vo`` with no front end runs ORB on the
-  CPU tensors it is given and returns the trajectory of frames 1..N-1.
+  CPU tensors it is given and returns the trajectory of frames 1..N-1; its
+  sequential mode tracks the same pairs, and it refuses an unknown mode.
 """
 
 import numpy as np
@@ -36,6 +37,7 @@ from forest_slam_tpu_torch.frontend.base import FrontendFns, orb_frontend
 from forest_slam_tpu_torch.frontend.orb import OrbConfig
 from forest_slam_tpu_torch.pipelines import stereo as tst
 from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W, N_FRAMES, HYP, K = 160, 224, 3, 128, 512
 
@@ -121,7 +123,9 @@ def test_run_stereo_vo_defaults_to_orb(run):
     assert tuple(outs.pose.shape) == (N_FRAMES - 1, 4, 4) and bool(outs.ok.all())
     np.testing.assert_array_equal(traj.timestamps, ts[1:])
     np.testing.assert_allclose(traj.positions, outs.pose[:, :3, 3].double().numpy())
-    with pytest.raises(NotImplementedError, match="scan"):
-        tst.run_stereo_vo(run["il"], run["ir"], ts, run["trig"], run["tcfg"], mode="scan")
-    with pytest.raises(NotImplementedError, match="bundle adjustment"):
-        tst.run_stereo_vo(run["il"], run["ir"], ts, run["trig"], run["tcfg"], ba=object())
+    # the sequential runner tracks the same pairs; an unknown mode is refused
+    _, scan = tst.run_stereo_vo(run["il"], run["ir"], ts, run["trig"], run["tcfg"], seed=0, mode="scan",
+                                device="cpu")
+    np.testing.assert_array_equal(scan.ok.numpy(), outs.ok.numpy())
+    with pytest.raises(ValueError, match="unknown mode"):
+        tst.run_stereo_vo(run["il"], run["ir"], ts, run["trig"], run["tcfg"], mode="sequential", device="cpu")

@@ -36,6 +36,7 @@ from forest_slam_tpu_torch.frontend.base import FrontendFns, learned_frontend
 from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
 from forest_slam_tpu_torch.pipelines import stereo as tst
 from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W, K, N_FRAMES, HYP = 160, 224, 128, 3, 128
 

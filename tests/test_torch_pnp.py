@@ -21,6 +21,7 @@ from forest_slam_tpu.geometry import pnp as jpnp
 from forest_slam_tpu_torch.core.camera import PinholeCamera
 from forest_slam_tpu_torch.core.lie import se3_exp
 from forest_slam_tpu_torch.geometry import pnp as tpnp
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KMAT = np.array([[643.2, 0, 479.5], [0, 643.2, 299.5], [0, 0, 1]], np.float32)
 

@@ -22,6 +22,7 @@ from forest_slam_tpu.frontend.refine import _cost_volume_xla
 from forest_slam_tpu.frontend.refine import refine_matches_quality as jrefine
 from forest_slam_tpu_torch.frontend.refine import RefineConfig, refine_matches_quality
 from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W, t, R = 64, 96, 8, 4
 

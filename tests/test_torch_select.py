@@ -21,6 +21,7 @@ from forest_slam_tpu.frontend.superpoint import SuperPointConfig as JConfig
 from forest_slam_tpu.frontend.superpoint import select_keypoints as jselect
 from forest_slam_tpu_torch.frontend.select_kernel import BAND_ROWS, launch_plan, nms_block_max, nms_block_max_plain
 from forest_slam_tpu_torch.frontend.superpoint import SuperPointConfig, block_path, select_keypoints
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _peaky(rng, B, H, W):

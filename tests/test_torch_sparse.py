@@ -28,6 +28,7 @@ from forest_slam_tpu_torch.stereo.sparse_kernel import (
     sparse_cost_rows,
     sparse_cost_rows_plain,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W, D, w = 160, 224, 48, 7
 

@@ -45,6 +45,7 @@ from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
 from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode, sinkhorn_decode_plain
 from forest_slam_tpu_torch.frontend.superglue import SuperGlueConfig, log_sinkhorn, match_decode, match_from_couplings
 from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, read_checkpoint, superglue_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 K = 128
 

@@ -24,6 +24,7 @@ from forest_slam_tpu.frontend.superpoint import select_keypoints as jselect
 from forest_slam_tpu.io.synthetic import render_sequence
 from forest_slam_tpu_torch.frontend.superpoint import SuperPointConfig, select_keypoints
 from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, read_checkpoint, superpoint_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W, K = 160, 224, 256
 

@@ -38,6 +38,7 @@ from forest_slam_tpu.train.trainer import _blur_training_batch
 from forest_slam_tpu_torch.io.synthetic import make_corridor_world
 from forest_slam_tpu_torch.train import data as T
 from forest_slam_tpu_torch.train.trainer import BlurDraws, blur_images
+from _torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 64, 80
 

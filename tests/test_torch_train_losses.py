@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from forest_slam_tpu.train import losses as J
 from forest_slam_tpu_torch.train import losses as T
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B, M, H, W = 3, 24, 64, 80
 

@@ -54,6 +54,7 @@ from forest_slam_tpu_torch.train.trainer import (
     make_optimizer,
     train,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ test_torch_train_state.py.
 import pytest
 
 from _torch_train_parity import assert_step_matches, jax_start, jax_tiny, torch_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

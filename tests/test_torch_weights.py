@@ -28,6 +28,7 @@ from forest_slam_tpu_torch.frontend.weights import (
     params_from_jax,
     read_checkpoint,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CHECKPOINTS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(WEIGHTS_DIR, "*.msgpack")))
 
