@@ -124,7 +124,29 @@ Phases, each printing one line with its elapsed seconds:
    by the training phase's rule with no kernel launched; steps/s printed;
    the checkpoint read back (the student equal, the teacher's SuperGlue
    subtree byte-equal, stem 4) and loaded by ``load_learned_frontend``;
-   the distilled front end's tracking of the 31-pair clip printed, not held.
+   the distilled front end's tracking of the 31-pair clip printed, not held;
+15. bag input (run after the back end): a BotanicGarden-shaped bag written
+   under a temporary directory (removed at the end): bench.py's corridor
+   world and 64 unique workload poses ping-ponged to 129 frames at 10 Hz,
+   rendered at the BotanicGarden rig (left at K_left, right at K_right
+   through T_left_right), each view distorted by its camera's k1, k2, as
+   960x600 bgr8 stereo (446 MB, uncompressed) with /gt_poses (lidar poses
+   whose T_RGB0_VLP16 @ pose are the camera poses) and /velodyne_points
+   (3000 points a scan, 5% NaN), and a 16-frame copy in bz2 chunks of 512
+   KiB; the native reader must read both (equal to the Python parser on
+   the bz2 bag), the first 16 loaded frames must equal a float64 host
+   undistort of the frames written, and the CLI runs in process: gt-traj
+   (equal to the rendered poses), gt-map, ``stereo --bag`` (learned with
+   the map and the viewer, ORB, learned with ``--rectify``) and ``slam
+   --bag`` (learned, and learned with ``--rectify``), each in odometry
+   mode, evaluated by ``eval`` against the bag's gt-traj and held to 90%
+   tracked, the ``--rectify`` runs also to ATE below 0.25 m in Sim(3) and
+   SE(3) (the unrectified runs keep the reference's double distortion
+   correction in PnP and its unrectified stereo, so their ATE is printed);
+   the learned path on the loaded frames with the rig's distortion zeroed,
+   held to ATE below 0.25 m (Sim(3)); ``mono --bag`` (ORB, odometry, 32
+   frames at stride 2) held to the mono rules; and ``view``; reader MB/s,
+   ``preprocess_frames`` ms a frame, pairs/s and ATE printed.
 
 The kernel checks also run the shapes the workload and the gates give the
 kernels: the sparse cost at 32 frames of K=1024 and of 512, the GNN layer at
@@ -1473,6 +1495,338 @@ def sgm_fixture_check(dev):
     return rec, failures
 
 
+# the bag phase: a BotanicGarden-shaped stereo bag written on the host and read
+# back through the CLI (forest_slam_tpu_torch.cli), as a user runs it
+BAG_FRAMES = 129  # bench.py's 64 unique workload poses, ping-ponged
+BAG_CHECK_FRAMES = 16  # the bz2 copy, and the frames whose loaded stacks are checked
+BAG_BZ2_CHUNK = 512 * 1024
+BAG_LIDAR_POINTS, BAG_LIDAR_NAN = 3000, 0.05
+BAG_MONO_FRAMES, BAG_MONO_STRIDE = 32, 2
+# mono's Sim(3) ATE bound: 5% of the path of frames 0, 2, ..., 62 (chip_smoke's mono rule)
+BAG_MONO_MAX_ATE_M = 0.05 * (BAG_MONO_FRAMES - 1) * BAG_MONO_STRIDE * 0.15
+# grey levels: the card's undistorted stacks against a float64 host undistort of the frames written
+BAG_PREPROCESS_TOL = 0.05
+BAG_GT_TOL_M = 1e-5  # gt-traj's camera poses against the rendered ones (written as %f)
+# the CLI's unrectified runs on a distorted rig keep two behaviours of the reference that bias their poses, so
+# their ATE is printed, not held (ROADMAP Queue C item 12): PnP scores with the distortion of a camera whose
+# frames are already undistorted (geometry/pnp.py, the reference's double correction), and sparse stereo reads
+# disparity along rows of unrectified frames whose principal points differ by 5 px (quirk B3). --rectify runs,
+# and the zero-distortion run, are held.
+BAG_UNRECTIFIED_NOTE = "printed, not held: PnP's double distortion correction, unrectified stereo"
+BAG_KERNELS = {"sp": ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"),
+               "orb": ("detect", "sparse_cost")}
+
+
+def bag_scene(dev, n_unique=None, n_frames=BAG_FRAMES):
+    """bench.py's corridor world and the first ``n_unique`` (default all
+    64) of its unique workload poses (0.15 m a frame) ping-ponged to
+    ``n_frames``, rendered at the BotanicGarden rig (left at K_left; right at
+    K_right, T_left_right from the left) and distorted by each camera's k1,
+    k2: (left, right) distorted float frames, the ideal left frames, the
+    poses, the rig."""
+    from forest_slam_tpu_torch import bench
+    from forest_slam_tpu_torch.core.lie import se3_compose
+    from forest_slam_tpu_torch.io import calib
+    from forest_slam_tpu_torch.io.synthetic import corridor_trajectory, distort_view, make_corridor_world, render_view
+
+    n_unique = bench.N_UNIQUE if n_unique is None else n_unique
+    rig = calib.botanic_garden_rig(dev)
+    world = make_corridor_world(textures=bench._world_arrays("corridor", 0.0), device=dev)  # cached by the bench phase
+    Ts = corridor_trajectory(n_unique, speed=bench.SPEED, device=dev)
+    il, ir = [], []
+    for s in range(0, n_unique, 16):
+        T = Ts[s:s + 16]
+        il.append(render_view(world, T, rig.left.K, calib.BOTANIC_HEIGHT, calib.BOTANIC_WIDTH)[0])
+        ir.append(render_view(world, se3_compose(T, rig.T_left_right), rig.right.K, calib.BOTANIC_HEIGHT,
+                              calib.BOTANIC_WIDTH)[0])
+    il, ir = torch.cat(il), torch.cat(ir)
+    dl, dr = distort_view(il, rig.left), distort_view(ir, rig.right)
+    idx = torch.as_tensor(bench.frame_index(n_frames, n_unique), device=dev, dtype=torch.long)
+    return dl[idx], dr[idx], il[idx], Ts[idx], rig
+
+
+def bag_lidar(Ts, seed=0):
+    """One scan a frame in the VLP16 frame: points on the corridor's walls
+    (x = +-4 m) and floor (y = 1.5 m) within 12 m of the camera, a share NaN."""
+    from forest_slam_tpu_torch.io import calib
+
+    rng = np.random.default_rng(seed)
+    T = Ts.double().cpu().numpy()
+    T_sensor = np.linalg.inv(calib.BOTANIC_T_RGB0_VLP16) @ T
+    scans = []
+    for k in range(T.shape[0]):
+        n = BAG_LIDAR_POINTS
+        z = T[k, 2, 3] + rng.uniform(-12.0, 12.0, n)
+        wall = rng.random(n) < 2 / 3
+        x = np.where(wall, np.where(rng.random(n) < 0.5, -4.0, 4.0), rng.uniform(-4.0, 4.0, n))
+        y = np.where(wall, rng.uniform(-4.5, 1.5, n), 1.5)
+        world = np.stack([x, y, z, np.ones(n)], axis=1)
+        pts = (world @ np.linalg.inv(T_sensor[k]).T)[:, :3].astype(np.float32)
+        pts[rng.random(n) < BAG_LIDAR_NAN] = np.nan
+        scans.append(pts)
+    return scans
+
+
+def undistort_host(frames: np.ndarray, cam) -> np.ndarray:
+    """The loader's preprocessing done independently on the host in float64:
+    BGR frames (N, H, W, 3) uint8 to gray, then the bilinear undistort remap
+    (cv2.initUndistortRectifyMap's map; samples outside read 0)."""
+    K = cam.K.double().cpu().numpy()
+    k1, k2, p1, p2, k3 = cam.dist.double().cpu().numpy()
+    H, W = cam.height, cam.width
+    gy, gx = np.mgrid[0:H, 0:W].astype(np.float64)
+    x, y = (gx - K[0, 2]) / K[0, 0], (gy - K[1, 2]) / K[1, 1]
+    r2 = x * x + y * y
+    rad = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+    sx = (x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)) * K[0, 0] + K[0, 2]
+    sy = (y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y) * K[1, 1] + K[1, 2]
+    gray = frames[..., 0] * 0.114 + frames[..., 1] * 0.587 + frames[..., 2] * 0.299
+    x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+    fx, fy = sx - x0, sy - y0
+    out = np.zeros(gray.shape, np.float64)
+    for dy, dx, w in ((0, 0, (1 - fx) * (1 - fy)), (0, 1, fx * (1 - fy)), (1, 0, (1 - fx) * fy), (1, 1, fx * fy)):
+        yy, xx = y0 + dy, x0 + dx
+        inside = (yy >= 0) & (yy < gray.shape[1]) & (xx >= 0) & (xx < gray.shape[2])
+        out += np.where(inside, gray[:, yy.clip(0, gray.shape[1] - 1), xx.clip(0, gray.shape[2] - 1)], 0.0) * w
+    return out
+
+
+def bag_phase(dev, wrappers, launches_by_path, smi):
+    """A 960x600 BotanicGarden-shaped stereo bag (bgr8, uncompressed, with
+    /gt_poses and /velodyne_points) and a 16-frame copy in bz2 chunks of 512
+    KiB, written under a temporary directory, then the CLI in process:
+    gt-traj, gt-map, stereo --bag (sp with the map and the viewer, orb, sp
+    with --rectify) and slam --bag (sp, and sp with --rectify), each
+    evaluated by ``eval`` against the bag's own gt-traj and held to
+    MIN_TRACKED, the --rectify runs also to MAX_ATE_M in Sim(3) and SE(3)
+    (the unrectified runs' ATE printed: BAG_UNRECTIFIED_NOTE); the learned
+    path on the loaded frames with the rig's distortion zeroed, held to
+    MAX_ATE_M in Sim(3); mono --bag (orb, 32 frames at stride 2) held to the
+    mono rules; and view. Also held: the native reader on both bags, native
+    and Python readers equal on the bz2 bag, gt-traj equal to the rendered
+    poses, and the first 16 loaded frames equal to a float64 host undistort
+    of the frames written. Each run resets the launch counts."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from forest_slam_tpu_torch.cli import main as cli_main
+    from forest_slam_tpu_torch.frontend.base import learned_frontend
+    from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
+    from forest_slam_tpu_torch.io import calib
+    from forest_slam_tpu_torch.io.dataset import (LEFT_TOPIC, RIGHT_TOPIC, load_stereo_from_bag, preprocess_frames,
+                                                  read_stereo, read_stereo_python)
+    from forest_slam_tpu_torch.io.synthetic import write_stereo_bag
+    from forest_slam_tpu_torch.io.tum import read_tum, write_tum
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo
+
+    t_phase = time.time()
+    failures, records = [], {}
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    dl, dr, ideal, Ts, rig = bag_scene(dev)
+    stamps = 1.6e9 + 0.1 * np.arange(BAG_FRAMES)
+    t_render = time.time() - t_phase
+
+    def cli(name, argv, kernels=()):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, launches, t = drive_path(wrappers, lambda: cli_main(argv))
+        said = out.getvalue()
+        launches_by_path[f"bag_{name}"] = launches
+        if rc != 0:
+            failures.append(f"bag {name}: the CLI exited {rc}: {said[-500:]}")
+        zero = [k for k in kernels if launches[k] == 0]
+        if zero:
+            failures.append(f"bag {name}: kernels never launched: {zero}")
+        if "--bag" in argv and argv[0] in ("stereo", "slam", "mono") and "(native reader)" not in said:
+            failures.append(f"bag {name}: the CLI did not read with the native reader: {said[:300]}")
+        return said, launches, t
+
+    with tempfile.TemporaryDirectory(prefix="bag_phase_") as tmp:
+        big, small = os.path.join(tmp, "botanic.bag"), os.path.join(tmp, "botanic_bz2.bag")
+        t0 = time.time()
+        write_stereo_bag(big, dl, dr, stamps, Ts, calib.BOTANIC_T_RGB0_VLP16, bag_lidar(Ts))
+        t_write = time.time() - t0
+        t0 = time.time()
+        write_stereo_bag(small, dl[:BAG_CHECK_FRAMES], dr[:BAG_CHECK_FRAMES], stamps[:BAG_CHECK_FRAMES],
+                         compression="bz2", chunk_size=BAG_BZ2_CHUNK)
+        t_write_bz2 = time.time() - t0
+        mb, mb_bz2 = os.path.getsize(big) / 1e6, os.path.getsize(small) / 1e6
+        log(f"bag: wrote {BAG_FRAMES} stereo pairs at 960x600 bgr8 ({mb:.1f} MB, {t_write:.2f} s) and a "
+            f"{BAG_CHECK_FRAMES}-pair copy in bz2 chunks of {BAG_BZ2_CHUNK // 1024} KiB ({mb_bz2:.1f} MB, "
+            f"{t_write_bz2:.2f} s); scene rendered and distorted on the card in {t_render:.2f} s")
+
+        # the readers: native and Python on both bags
+        reads = {}
+        for tag, path in (("plain", big), ("bz2", small)):
+            size = os.path.getsize(path) / 1e6
+            t0 = time.time()
+            nl, nr, nt, reader = read_stereo(path)
+            t_nat = time.time() - t0
+            t0 = time.time()
+            pl, pr, pt = read_stereo_python(path, LEFT_TOPIC, RIGHT_TOPIC, None, 1)
+            t_py = time.time() - t0
+            equal = bool(np.array_equal(nl, pl) and np.array_equal(nr, pr) and np.array_equal(nt, pt))
+            frames_mb = (nl.nbytes + nr.nbytes) / 1e6
+            reads[tag] = dict(reader=reader, pairs=int(nl.shape[0]), file_mb=size, frames_mb=frames_mb,
+                              native_mb_s=frames_mb / t_nat, python_mb_s=frames_mb / t_py, native_s=t_nat,
+                              python_s=t_py, equal=equal)
+            if reader != "native":
+                failures.append(f"bag: the loader read the {tag} bag with the {reader} reader, not the native one")
+            if not equal or nl.shape[0] != (BAG_FRAMES if tag == "plain" else BAG_CHECK_FRAMES):
+                failures.append(f"bag: the native and Python readers differ on the {tag} bag")
+            if tag == "plain":
+                lefts = nl
+            del nl, nr, pl, pr
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pre = preprocess_frames(lefts, rig.left, device=dev)
+        torch.cuda.synchronize()
+        pre_ms = (time.time() - t0) * 1e3 / BAG_FRAMES
+        del pre
+        # the first frames through the loader against the host's float64 undistort of the frames written
+        seq = load_stereo_from_bag(big, rig, max_frames=BAG_CHECK_FRAMES, device=dev)
+        want = undistort_host(lefts[:BAG_CHECK_FRAMES], rig.left)
+        got = seq.images_left.double().cpu().numpy()
+        pre_err = float(np.abs(got - want).max())
+        dev_ideal = (seq.images_left - ideal[:BAG_CHECK_FRAMES])[:, 10:-10, 10:-10].abs()
+        ideal_stats = dict(mean=dev_ideal.mean().item(), p99=torch.quantile(dev_ideal[0].flatten()[::17], 0.99).item(),
+                           max=dev_ideal.max().item())
+        if seq.reader != "native" or pre_err > BAG_PREPROCESS_TOL:
+            failures.append(f"bag: loaded frames off the host undistort by {pre_err} (tolerance "
+                            f"{BAG_PREPROCESS_TOL}), reader {seq.reader}")
+        records.update(reads=reads, preprocess_ms_per_frame=pre_ms, preprocess_max_err=pre_err,
+                       undistort_of_distort=ideal_stats, bag_mb=mb, bz2_mb=mb_bz2, write_s=t_write)
+        log(f"bag readers (MB of frames delivered a second) on {card}'s host: " + "; ".join(
+            f"{tag} ({r['file_mb']:.1f} MB file, {r['frames_mb']:.1f} MB of frames): {r['reader']} "
+            f"{r['native_mb_s']:.1f} MB/s ({r['native_s']:.3f} s), Python {r['python_mb_s']:.1f} MB/s "
+            f"({r['python_s']:.3f} s), equal {r['equal']}" for tag, r in reads.items())
+            + f"; preprocess_frames {pre_ms:.3f} ms a frame (960x600 bgr8 -> gray, undistorted); loaded frames vs "
+            f"host float64 undistort max {pre_err:.3g} (tolerance {BAG_PREPROCESS_TOL}); undistort of the distort "
+            f"against the rendered frames (10 px border out): mean {ideal_stats['mean']:.3f}, p99 "
+            f"{ideal_stats['p99']:.2f}, max {ideal_stats['max']:.2f} grey levels")
+        del seq, dl, dr, ideal
+        torch.cuda.empty_cache()
+
+        gt, gtmap = os.path.join(tmp, "gt.txt"), os.path.join(tmp, "gt_map.ply")
+        said, _, t_gt = cli("gt_traj", ["gt-traj", "--bag", big, "--out", gt])
+        gt_err = float(np.abs(read_tum(gt).positions - Ts[1:, :3, 3].double().cpu().numpy()).max())
+        if len(read_tum(gt)) != BAG_FRAMES - 1 or not gt_err < BAG_GT_TOL_M:
+            failures.append(f"bag gt-traj: {len(read_tum(gt))} poses, {gt_err} m off the rendered poses")
+        said, _, t_map = cli("gt_map", ["gt-map", "--bag", big, "--out", gtmap])
+        n_map = int(re.search(r"gt-map: (\d+) points", said).group(1)) if "gt-map:" in said else 0
+        if n_map < 1000:
+            failures.append(f"bag gt-map: {n_map} points")
+        records["gt"] = dict(traj_seconds=t_gt, traj_max_err_m=gt_err, map_points=n_map, map_seconds=t_map)
+        log(f"bag gt-traj: {BAG_FRAMES - 1} poses in {t_gt:.2f} s, {gt_err:.3g} m off the rendered poses; gt-map: "
+            f"{n_map} points in {t_map:.2f} s")
+
+        def evaluate(est, scale):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli_main(["eval", "--est", est, "--gt", gt] + ([] if scale else ["--no-scale"]))
+            return json.loads(out.getvalue())["ape"]
+
+        # (name, CLI arguments, front end, writes the map and viewer, ATE held)
+        runs = (("stereo_sp", ["stereo", "--frontend", "sp"], "sp", True, False),
+                ("stereo_orb", ["stereo", "--frontend", "orb"], "orb", False, False),
+                ("stereo_sp_rectify", ["stereo", "--frontend", "sp", "--rectify"], "sp", False, True),
+                ("slam_sp", ["slam", "--frontend", "sp"], "sp", False, False),
+                ("slam_sp_rectify", ["slam", "--frontend", "sp", "--rectify"], "sp", False, True))
+        est_sp = None
+        for name, argv, kind, outputs, ate_held in runs:
+            est = os.path.join(tmp, f"{name}.txt")
+            extra = ["--map-out", os.path.join(tmp, "map.ply"), "--viewer-out", os.path.join(tmp, "run.html")] \
+                if outputs else []
+            said, launches, t = cli(name, argv + ["--bag", big, "--compose-mode", "odometry", "--out", est,
+                                                  "--device", dev.type] + extra, BAG_KERNELS[kind])
+            m = re.search(r"tracked (\d+)/(\d+)", said)
+            tracked, pairs = (int(m.group(1)), int(m.group(2))) if m else (0, BAG_FRAMES - 1)
+            sim3, se3 = evaluate(est, True), evaluate(est, False)
+            loops = re.search(r"loops (\d+)", said)
+            rec = dict(tracked=tracked, pairs=pairs, ate_sim3_m=sim3["rmse"], ate_se3_m=se3["rmse"],
+                       pairs_per_s=pairs / t, seconds=t, launches=launches)
+            if loops:
+                rec["loops"] = int(loops.group(1))
+            if outputs:
+                est_sp = est
+                html = open(os.path.join(tmp, "run.html")).read()
+                rec["viewer_bytes"] = len(html)
+                if '"name": "map"' not in html:
+                    failures.append(f"bag {name}: the viewer holds no map layer")
+            records[name] = rec
+            if pairs != BAG_FRAMES - 1 or tracked < MIN_TRACKED * pairs:
+                failures.append(f"bag {name}: {tracked}/{pairs} pairs tracked")
+            if ate_held and not max(sim3["rmse"], se3["rmse"]) < MAX_ATE_M:
+                failures.append(f"bag {name}: ATE {sim3['rmse']} m Sim(3), {se3['rmse']} m SE(3), bound {MAX_ATE_M} m")
+            bound = f"bound {MAX_ATE_M}" if ate_held else BAG_UNRECTIFIED_NOTE
+            log(f"bag {name}: {tracked}/{pairs} tracked, ATE {sim3['rmse']:.4f} m Sim(3), {se3['rmse']:.4f} m SE(3) "
+                f"({bound}), {pairs / t:.2f} pairs/s through the CLI ({t:.3f} s: read, preprocess, front-end load and "
+                f"the run){'' if not loops else f', loops {loops.group(1)}'} on {card}; launches {launches}")
+            torch.cuda.empty_cache()
+
+        # the cause of the unrectified runs' error: the same frames, the rig's distortion zeroed after undistortion
+        seq = load_stereo_from_bag(big, rig, device=dev)
+        zero = torch.zeros(5, device=dev)
+        plain_rig = rig._replace(left=rig.left._replace(dist=zero), right=rig.right._replace(dist=zero))
+        fe = learned_frontend(load_learned_frontend(FLAGSHIP_PATH, (calib.BOTANIC_HEIGHT, calib.BOTANIC_WIDTH),
+                                                    device=dev))
+        cfg = StereoConfig(compose_mode="odometry", match_refine_radius=12)
+        (traj, outs), launches, t = drive_path(wrappers, lambda: run_stereo_vo(
+            seq.images_left, seq.images_right, seq.timestamps, plain_rig, cfg, frontend=fe))
+        launches_by_path["bag_stereo_sp_zero_dist"] = launches
+        del seq
+        est = os.path.join(tmp, "zero_dist.txt")
+        write_tum(est, traj)
+        sim3, se3 = evaluate(est, True), evaluate(est, False)
+        tracked = int(outs.ok.sum().item())
+        records["stereo_sp_zero_dist"] = dict(tracked=tracked, ate_sim3_m=sim3["rmse"], ate_se3_m=se3["rmse"],
+                                              pairs_per_s=(BAG_FRAMES - 1) / t, launches=launches)
+        if tracked < MIN_TRACKED * (BAG_FRAMES - 1) or not sim3["rmse"] < MAX_ATE_M:
+            failures.append(f"bag stereo_sp_zero_dist: {tracked} tracked, Sim(3) ATE {sim3['rmse']} m")
+        zero_k = [k for k in BAG_KERNELS["sp"] if launches[k] == 0]
+        if zero_k:
+            failures.append(f"bag stereo_sp_zero_dist: kernels never launched: {zero_k}")
+        log(f"bag stereo_sp_zero_dist (the loaded frames, the rig's distortion zeroed for PnP): {tracked}/"
+            f"{BAG_FRAMES - 1} tracked, ATE {sim3['rmse']:.4f} m Sim(3) (bound {MAX_ATE_M}), {se3['rmse']:.4f} m SE(3) "
+            f"(printed: unrectified depth's scale); {(BAG_FRAMES - 1) / t:.2f} pairs/s on {card}; launches {launches}")
+        del fe, outs
+        torch.cuda.empty_cache()
+
+        est = os.path.join(tmp, "mono.txt")
+        said, launches, t = cli("mono_orb", ["mono", "--bag", big, "--frontend", "orb", "--compose-mode", "odometry",
+                                             "--max-frames", str(BAG_MONO_FRAMES), "--frame-stride",
+                                             str(BAG_MONO_STRIDE), "--out", est, "--device", dev.type], ("detect",))
+        m = re.search(r"tracked (\d+)/(\d+)", said)
+        tracked, pairs = (int(m.group(1)), int(m.group(2))) if m else (0, BAG_MONO_FRAMES - 1)
+        sim3 = evaluate(est, True)
+        records["mono_orb"] = dict(tracked=tracked, pairs=pairs, ate_sim3_m=sim3["rmse"], matched=sim3["n"],
+                                   pairs_per_s=pairs / t, seconds=t, launches=launches)
+        if pairs != BAG_MONO_FRAMES - 1 or tracked < MONO_MIN_TRACKED["odometry"] * pairs:
+            failures.append(f"bag mono_orb: {tracked}/{pairs} pairs tracked")
+        if not sim3["rmse"] < BAG_MONO_MAX_ATE_M or sim3["n"] != pairs:
+            failures.append(f"bag mono_orb: Sim(3) ATE {sim3['rmse']} m >= {BAG_MONO_MAX_ATE_M} m or "
+                            f"{sim3['n']} poses matched")
+        if launches["sparse_cost"]:
+            failures.append("bag mono_orb: sparse_cost launched on the mono path")
+        log(f"bag mono_orb (frames 0..{(BAG_MONO_FRAMES - 1) * BAG_MONO_STRIDE} at stride {BAG_MONO_STRIDE}): "
+            f"{tracked}/{pairs} tracked, Sim(3) ATE {sim3['rmse']:.4f} m (bound {BAG_MONO_MAX_ATE_M:.4f} m), "
+            f"{pairs / t:.2f} pairs/s through the CLI ({t:.3f} s) on {card}; launches {launches}")
+
+        view = os.path.join(tmp, "view.html")
+        said, _, t_view = cli("view", ["view", "--traj", f"learned={est_sp}", "--gt", gt, "--map", gtmap, "--out",
+                                       view])
+        html = open(view).read() if os.path.exists(view) else ""
+        if not all(f'"name": "{n}"' in html for n in ("learned", "ground truth", "map")):
+            failures.append("bag view: the viewer lacks a layer")
+        records["view"] = dict(bytes=len(html), seconds=t_view)
+    records["seconds"] = time.time() - t_phase
+    log(f"bag phase: {records['seconds']:.1f} s on {card}")
+    print(json.dumps({"bag": records}), flush=True)
+    return failures
+
+
 def render_frames(dev, h, w, n):
     """n consecutive corridor frames at w x h rendered on the card: (left,
     right, ground-truth poses, rig)."""
@@ -1899,6 +2253,10 @@ def main() -> int:
     # the back end: loop closure, relocalization, the workload with BA and SLAM, the sequential runners
     failures += slam_phase(dev, wrappers, launches_by_path, smi, fe, (il, ir, gt, rig), learned_workload)
     del learned_workload
+    torch.cuda.empty_cache()
+
+    # bag input: a BotanicGarden-shaped 960x600 bag through the CLI
+    failures += bag_phase(dev, wrappers, launches_by_path, smi)
     torch.cuda.empty_cache()
 
     # the gate suite: bench.py's vo gates, worst of seeds 0 and 1

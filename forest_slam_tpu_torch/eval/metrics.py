@@ -1,5 +1,5 @@
-"""Trajectory errors (port of eval/metrics.py's APE and RPE and of
-eval/association.py)."""
+"""Trajectory errors (port of eval/metrics.py: APE, RPE, ``evaluate_ate``,
+and the association of eval/association.py)."""
 
 from __future__ import annotations
 
@@ -38,14 +38,16 @@ class ErrorStats(NamedTuple):
 
 def associate(est: Trajectory, ref: Trajectory, max_diff: float = 0.01):
     """Pair each estimated pose with the nearest reference stamp; pairs
-    further apart than ``max_diff`` seconds are dropped."""
+    further apart than ``max_diff`` seconds are dropped (also exported by
+    eval/association.py)."""
+    from forest_slam_tpu_torch.eval.association import nearest_indices
+
     if len(est) == 0 or len(ref) == 0:
         empty = Trajectory(np.zeros(0), np.zeros((0, 3)), np.zeros((0, 4)))
         return empty, empty
     order = np.argsort(ref.timestamps, kind="stable")
     stamps = ref.timestamps[order]
-    idx = np.clip(np.searchsorted(stamps, est.timestamps), 1, len(stamps) - 1)
-    idx -= (est.timestamps - stamps[idx - 1]) < (stamps[idx] - est.timestamps)
+    idx = nearest_indices(est.timestamps, stamps)
     keep = np.abs(stamps[idx] - est.timestamps) <= max_diff
     idx = order[idx[keep]]
     est_m = Trajectory(est.timestamps[keep], est.positions[keep], est.quaternions[keep])
@@ -89,3 +91,10 @@ def rpe_distance_ratio(est: Trajectory, ref: Trajectory, delta_m: float = 20.0, 
         if d_ref > 1e-9:
             errors.append(abs(d_est - d_ref) / d_ref * 100.0)
     return ErrorStats.from_errors(np.asarray(errors))
+
+
+def evaluate_ate(est_path: str, ref_path: str, **kwargs) -> ErrorStats:
+    """APE (translation) between two TUM files."""
+    from forest_slam_tpu_torch.io.tum import read_tum
+
+    return ape_translation(read_tum(est_path), read_tum(ref_path), **kwargs)

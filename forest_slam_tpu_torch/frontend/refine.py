@@ -142,3 +142,10 @@ def refine_matches_quality(img0, img1, xy0, xy1, valid, cfg: RefineConfig = Refi
     quality = torch.where(ok, torch.clamp(1.0 - ratio, 0.0, 1.0), torch.zeros_like(ratio))
     back = lambda a: a.gather(1, inv[..., None].expand_as(a)) if a.dim() == 3 else a.gather(1, inv)
     return back(out), back(ok), back(quality)
+
+
+def refine_matches(img0, img1, xy0, xy1, valid, cfg: RefineConfig = RefineConfig()):
+    """:func:`refine_matches_quality` without the quality channel:
+    ((B, K, 2) refined frame-1 coords, (B, K) ok)."""
+    out, ok, _ = refine_matches_quality(img0, img1, xy0, xy1, valid, cfg)
+    return out, ok

@@ -377,3 +377,58 @@ def render_sequence(n_frames: int, height: int = 120, width: int = 160, seed: in
     il, ir, dl = render_stereo(world, Ts, rig, height, width)
     return SyntheticSequence(images_left=il, images_right=ir, depths_left=dl, T_world_cam=Ts,
                              timestamps=1.6e9 + np.arange(n_frames) * dt, rig=rig)
+
+
+def distort_view(images: torch.Tensor, cam: PinholeCamera) -> torch.Tensor:
+    """Frames (..., H, W) rendered by the ideal pinhole ``cam.K`` as ``cam``
+    sees them through its distortion: each pixel of the result reads the
+    ideal frame at ``K @ undistort_points(pixel)``, so undistorting the
+    result (``core/camera.py:undistort_map``) gives the ideal frame back up
+    to the two bilinear resamplings."""
+    from forest_slam_tpu_torch.core.camera import remap_bilinear, undistort_points
+
+    H, W = images.shape[-2:]
+    dev = images.device
+    gy, gx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    xn = undistort_points(torch.stack([gx, gy], dim=-1), cam)
+    src = xn * torch.stack([cam.fx, cam.fy]) + torch.stack([cam.cx, cam.cy])
+    return remap_bilinear(images, src)
+
+
+def write_stereo_bag(path: str, images_left, images_right, timestamps, T_world_cam=None, T_cam_sensor=None,
+                     clouds=None, compression: str = "none", chunk_size: int = 0) -> None:
+    """Write (N, H, W) frames in [0, 255] (arrays or tensors) as a
+    BotanicGarden-shaped ROS1 bag, each frame's messages at its stamp: the
+    two image topics of io/dataset.py (``bgr8``, the gray value in each
+    channel); with ``T_world_cam`` (N, 4, 4), ``/gt_poses`` as
+    nav_msgs/Odometry sensor poses P with ``T_cam_sensor @ P =
+    T_world_cam`` (what eval/groundtruth.py reads back); with ``clouds`` (N
+    sensor-frame (M, 3) point arrays, NaN allowed), ``/velodyne_points``."""
+    from scipy.spatial.transform import Rotation
+
+    from forest_slam_tpu_torch.io.dataset import LEFT_TOPIC, RIGHT_TOPIC
+    from forest_slam_tpu_torch.io.rosbag import BagWriter
+
+    def u8(x):
+        x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+    left, right = u8(images_left), u8(images_right)
+    poses = None
+    if T_world_cam is not None:
+        T = T_world_cam.detach().double().cpu().numpy() if isinstance(T_world_cam, torch.Tensor) else np.asarray(
+            T_world_cam, np.float64)
+        poses = np.linalg.inv(np.eye(4) if T_cam_sensor is None else np.asarray(T_cam_sensor, np.float64)) @ T
+    w = BagWriter(path)
+    for i, t in enumerate(np.asarray(timestamps, np.float64)):
+        t = float(t)
+        for topic, img in ((LEFT_TOPIC, left[i]), (RIGHT_TOPIC, right[i])):
+            w.write(topic, "sensor_msgs/Image", BagWriter.encode_image(np.repeat(img[:, :, None], 3, axis=2), t, "bgr8"),
+                    t)
+        if poses is not None:
+            q = Rotation.from_matrix(poses[i, :3, :3]).as_quat()
+            w.write("/gt_poses", "nav_msgs/Odometry", BagWriter.encode_odometry(poses[i, :3, 3], q, t), t)
+        if clouds is not None:
+            w.write("/velodyne_points", "sensor_msgs/PointCloud2", BagWriter.encode_pointcloud2(clouds[i], t), t)
+    w.close(compression=compression, chunk_size=chunk_size)

@@ -21,6 +21,12 @@ DEFAULT_OUT = os.path.join(WEIGHTS_DIR, "learned_frontend.msgpack")
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m forest_slam_tpu_torch.train", description=__doc__.split("\n\n")[0])
+    add_arguments(p)
+    return p
+
+
+def add_arguments(p: argparse.ArgumentParser) -> None:
+    """The flags of ``train-frontend`` (here and in cli.py)."""
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--height", type=int, default=120)
@@ -48,7 +54,6 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--blur-fraction", type=float, default=0.0,
                    help="share of training images blurred in random regions; 0 disables")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    return p
 
 
 def config(args) -> TrainConfig:
@@ -64,7 +69,11 @@ def config(args) -> TrainConfig:
 
 
 def main(argv=None) -> int:
-    args = parser().parse_args(argv)
+    return run(parser().parse_args(argv))
+
+
+def run(args) -> int:
+    """Train by the parsed flags and write the checkpoint."""
     cfg = config(args)
     state = None
     if args.init_from:

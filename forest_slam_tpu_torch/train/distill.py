@@ -431,6 +431,12 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m forest_slam_tpu_torch.train.distill",
                                 description="Distil a trained SuperPoint into a faster stem, keeping the teacher's "
                                             "SuperGlue.")
+    add_arguments(p)
+    return p
+
+
+def add_arguments(p: argparse.ArgumentParser) -> None:
+    """The flags of ``distill-frontend`` (here and in cli.py)."""
     p.add_argument("--teacher", default=None,
                    help=f"teacher checkpoint (default {os.path.relpath(DEFAULT_TEACHER)}, the stride-1 one)")
     p.add_argument("--out", required=True, help="output .msgpack")
@@ -452,11 +458,14 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--w-subpix", type=float, default=0.0,
                    help="weight of the in-cell detector centre of mass against the teacher's (0 disables)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    return p
 
 
 def main(argv=None) -> int:
-    args = parser().parse_args(argv)
+    return run(parser().parse_args(argv))
+
+
+def run(args) -> int:
+    """Distil by the parsed flags and write the checkpoint."""
     cfg = DistillConfig(
         teacher_path=args.teacher or DEFAULT_TEACHER, stem_stride=args.stem_stride, height=args.height,
         width=args.width, batch_size=args.batch, learning_rate=args.lr, pool_frames=args.pool_frames,

@@ -21,7 +21,9 @@ chip_smoke.DISTILL_AGREEMENT; the SGM disparity (plain PyTorch) on the card
 equals the CPU's on the OpenCV fixture. The back end (``-k slam``): the pose
 graph, batched BA and window BA on the card within 1e-4 of the CPU, loop
 verification's batch with the same draws and the learned matcher's batch
-against the CPU's plain versions, streaming equal to the scan.
+against the CPU's plain versions, streaming equal to the scan. The bag
+loader (``-k bag``): frames undistorted onto the card within 1e-3 grey
+levels of the CPU's.
 """
 
 import pytest
@@ -1005,3 +1007,27 @@ def test_slam_streaming_equals_scan_on_card(cuda, tmp_path):
     assert torch.equal(stream.pose, scan.pose.cpu()) and torch.equal(stream.ok, scan.ok.cpu())
     assert torch.equal(scan.ok, batched.ok) and bool(scan.ok.all())
     assert np.abs(read_tum(path).positions - traj.positions).max() < 1e-5
+
+
+def test_bag_loader_card_matches_cpu(cuda, tmp_path):
+    """``load_stereo_from_bag`` onto the card (the BotanicGarden rig, 960x600
+    bgr8 frames of noise) within 1e-3 grey levels of the CPU's, by the
+    native reader on both."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.io import calib
+    from forest_slam_tpu_torch.io.dataset import load_stereo_from_bag
+    from forest_slam_tpu_torch.io.synthetic import write_stereo_bag
+
+    dev, _ = cuda
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (2, 5, 600, 960)).astype(np.float32)
+    path = str(tmp_path / "b.bag")
+    write_stereo_bag(path, frames[0], frames[1], 1.6e9 + 0.1 * np.arange(5))
+    card = load_stereo_from_bag(path, calib.botanic_garden_rig(dev), frame_stride=2, device=dev)
+    cpu = load_stereo_from_bag(path, calib.botanic_garden_rig("cpu"), frame_stride=2, device="cpu")
+    assert card.reader == cpu.reader == "native" and card.images_left.device.type == "cuda"
+    for a, b in ((card.images_left, cpu.images_left), (card.images_right, cpu.images_right)):
+        assert a.shape == (3, 600, 960)
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(card.timestamps, cpu.timestamps)

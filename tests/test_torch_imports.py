@@ -6,8 +6,9 @@
   card, and where it stands alone in a directory; the distillation entry
   point, ``run_mono_vo``, ``run_stereo_vo``, ``run_slam`` and ``python -m
   forest_slam_tpu_torch.cli mono|stereo|slam`` refuse to run without a card
-  unless asked for the CPU; the CLI refuses the flags the port does not
-  take yet, naming the roadmap item.
+  unless asked for the CPU; the CLI flags that the port once refused (the
+  bag input, --max-frames, --frame-stride, --rectify, the viewer and the
+  match plots) work on the CPU.
 - The kernel build reports nvcc's own output when nvcc fails, and leaves no
   partial library behind.
 """
@@ -55,7 +56,9 @@ def test_port_imports_no_jax():
                 "train.distill", "stereo.disparity", "stereo.depth", "stereo.rectify", "geometry.epipolar",
                 "geometry.fivepoint", "geometry.triangulation", "pipelines.mono", "utils.metrics", "cli",
                 "backend", "backend.mapping", "backend.pose_graph", "backend.ba", "backend.window",
-                "backend.loop_closure", "backend.relocalize", "io.ply", "pipelines.slam"):
+                "backend.loop_closure", "backend.relocalize", "io.ply", "pipelines.slam", "io.lz4f", "io.rosbag",
+                "io.calib", "io.dataset", "native", "eval.association", "eval.groundtruth", "eval.viewer",
+                "eval.plots"):
         assert "forest_slam_tpu_torch." + mod in names
 
 
@@ -137,28 +140,106 @@ def test_stereo_and_slam_entry_points_need_a_card_or_the_cpu(tmp_path):
     assert not (tmp_path / "est.txt").exists()
 
 
-@pytest.mark.parametrize("flags", [["--bag", "a.bag"], ["--synthetic", "3", "--max-frames", "2"],
-                                   ["--synthetic", "3", "--frame-stride", "2"],
-                                   ["--synthetic", "3", "--viewer-out", "v.html"],
-                                   ["--synthetic", "3", "--debug-matches", "d"]])
-def test_cli_refuses_flags_not_ported(tmp_path, capsys, flags):
+@pytest.fixture(scope="module")
+def small_bag(tmp_path_factory):
+    """A 6-frame bgr8 stereo bag of 120x192 noise frames with ground truth,
+    and the BotanicGarden rig at a fifth of its size for the CLI to read it
+    with (the CLI's own rig is 600x960)."""
+    import numpy as np
+    import torch
+
+    from forest_slam_tpu_torch.core.camera import PinholeCamera, StereoRig
+    from forest_slam_tpu_torch.io import calib
+    from forest_slam_tpu_torch.io.synthetic import write_stereo_bag
+
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (2, 6, 120, 192)).astype(np.float32)
+    path = str(tmp_path_factory.mktemp("bag") / "small.bag")
+    write_stereo_bag(path, frames[0], frames[1], 1.6e9 + 0.1 * np.arange(6), np.tile(np.eye(4), (6, 1, 1)))
+    s = np.diag([0.2, 0.2, 1.0])
+    cam = lambda K, d: PinholeCamera.create(s @ K, d, 192, 120, device="cpu")  # noqa: E731
+    rig = StereoRig(cam(calib.BOTANIC_K_LEFT, calib.BOTANIC_DIST_LEFT), cam(calib.BOTANIC_K_RIGHT,
+                                                                           calib.BOTANIC_DIST_RIGHT),
+                    torch.as_tensor(calib.BOTANIC_T_LEFT_RIGHT, dtype=torch.float32))
+    return path, rig
+
+
+def _small_rig(monkeypatch, rig):
+    """The small rig in place of the CLI's; returns the list that records
+    each viewer write's refresh_seconds."""
+    from forest_slam_tpu_torch.eval import viewer
+    from forest_slam_tpu_torch.io import calib
+
+    monkeypatch.setattr(calib, "botanic_garden_rig", lambda device="cuda": rig)
+    monkeypatch.setattr(calib, "botanic_garden_left", lambda device="cuda": rig.left)
+    writes, write = [], viewer.write_viewer_html
+
+    def recorded(*a, **k):
+        writes.append(k.get("refresh_seconds"))
+        write(*a, **k)
+
+    monkeypatch.setattr(viewer, "write_viewer_html", recorded)
+    return writes
+
+
+def _check_output(tmp_path, flags, said, n_poses, writes):
+    from forest_slam_tpu_torch.io.tum import read_tum
+
+    assert len(read_tum(str(tmp_path / "est.txt"))) == n_poses
+    if "--viewer-out" in flags:
+        html = open(tmp_path / "v.html").read()
+        assert "const PAYLOAD" in html and "viewer ->" in said
+        # follow mode rewrites the viewer with a refresh header after each chunk (stereo's streaming runner), then
+        # writes the final one without it
+        live = "--viewer-follow" in flags and "stereo: " in said
+        assert writes == ([2.0] if live else []) + [None] and 'http-equiv="refresh"' not in html
+    if "--debug-matches" in flags:
+        pngs = os.listdir(tmp_path / "d")
+        assert pngs and all(p.endswith(".png") for p in pngs)
+
+
+@pytest.mark.parametrize("flags, n_poses", [(["--bag", "BAG"], 5), (["--bag", "BAG", "--max-frames", "2"], 1),
+                                            (["--bag", "BAG", "--frame-stride", "2"], 2),
+                                            (["--synthetic", "3", "--viewer-out", "v.html"], 2),
+                                            (["--synthetic", "3", "--debug-matches", "d"], 2)])
+def test_cli_refuses_flags_not_ported(tmp_path, capsys, monkeypatch, small_bag, flags, n_poses):
+    """Each flag the port once refused now works on the CPU: the bag input
+    (with --max-frames and --frame-stride), the viewer and the match plots."""
     from forest_slam_tpu_torch.cli import main
 
-    assert main(["mono", *flags, "--out", str(tmp_path / "est.txt"), "--device", "cpu"]) == 2
-    assert "Queue A item 9" in capsys.readouterr().err
-    assert not (tmp_path / "est.txt").exists()
+    if "--debug-matches" in flags:
+        pytest.importorskip("matplotlib")
+    writes = _small_rig(monkeypatch, small_bag[1])
+    flags = [small_bag[0] if f == "BAG" else str(tmp_path / f) if f in ("v.html", "d") else f for f in flags]
+    assert main(["mono", *flags, "--out", str(tmp_path / "est.txt"), "--device", "cpu", "--compose-mode",
+                 "odometry"]) == 0
+    said = capsys.readouterr().out
+    assert ("native reader" in said) == ("--bag" in flags)
+    _check_output(tmp_path, flags, said, n_poses, writes)
 
 
-@pytest.mark.parametrize("cmd, flags", [("stereo", ["--bag", "a.bag"]), ("stereo", ["--synthetic", "3", "--rectify"]),
-                                        ("stereo", ["--synthetic", "3", "--viewer-out", "v.html", "--viewer-follow"]),
-                                        ("slam", ["--synthetic", "3", "--debug-matches", "d"]),
-                                        ("slam", ["--synthetic", "3", "--viewer-follow"])])
-def test_stereo_and_slam_cli_refuse_flags_not_ported(tmp_path, capsys, cmd, flags):
+@pytest.mark.parametrize("cmd, flags, n_poses", [("stereo", ["--bag", "BAG"], 5),
+                                                 ("stereo", ["--bag", "BAG", "--rectify"], 5),
+                                                 ("stereo", ["--synthetic", "3", "--viewer-out", "v.html",
+                                                             "--viewer-follow"], 2),
+                                                 ("slam", ["--synthetic", "3", "--debug-matches", "d"], 2),
+                                                 ("slam", ["--synthetic", "3", "--viewer-out", "v.html",
+                                                           "--viewer-follow"], 2)])
+def test_stereo_and_slam_cli_refuse_flags_not_ported(tmp_path, capsys, monkeypatch, small_bag, cmd, flags, n_poses):
+    """Each flag the port once refused now works on the CPU: the bag input,
+    --rectify, the viewer in follow mode (stereo's streaming runner; slam
+    writes the viewer once, as the JAX CLI does) and the match plots."""
     from forest_slam_tpu_torch.cli import main
 
-    assert main([cmd, *flags, "--out", str(tmp_path / "est.txt"), "--device", "cpu"]) == 2
-    assert "Queue A item 9" in capsys.readouterr().err
-    assert not (tmp_path / "est.txt").exists()
+    if "--debug-matches" in flags:
+        pytest.importorskip("matplotlib")
+    writes = _small_rig(monkeypatch, small_bag[1])
+    flags = [small_bag[0] if f == "BAG" else str(tmp_path / f) if f in ("v.html", "d") else f for f in flags]
+    assert main([cmd, *flags, "--out", str(tmp_path / "est.txt"), "--device", "cpu", "--compose-mode",
+                 "odometry"]) == 0
+    said = capsys.readouterr().out
+    assert f"{cmd}: {n_poses} poses" in said
+    _check_output(tmp_path, flags, said, n_poses, writes)
 
 
 def test_build_failure_reports_nvcc_output(tmp_path, monkeypatch):
