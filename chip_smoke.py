@@ -39,7 +39,9 @@ Phases, each printing one line with its elapsed seconds:
 6. learned path with the unfused GNN (``bench.py --sg-gnn xla``): the same
    run with every GNN layer op by op around the attention kernel, which
    must launch while the fused layer kernel does not; then the plain
-   versions;
+   versions; then the same with ``--sg-attention flash`` (the library's
+   ``scaled_dot_product_attention``): held to 90% tracked, ATE printed,
+   neither ``attention`` nor ``gnn_layer`` launched;
 7. lowres gate (``bench.py:626-682``, run through
    ``forest_slam_tpu_torch.bench.lowres_setup``): 24 corridor frames at
    224x160, extracted at octaves (1.0, 1.7, 2.89), K=512, 512 hypotheses,
@@ -97,7 +99,14 @@ Phases, each printing one line with its elapsed seconds:
    fall-back to ORB fails the run) with a warm-up and three timed runs
    (three more when they spread by over 10%), then ORB with a warm-up and
    one timed run; each held to 90% of its pairs tracked and ATE below
-   0.25 m, with pairs/s, ATE and RPE printed;
+   0.25 m, with pairs/s, ATE and RPE printed, and the bench's roofline
+   (``mfu``, ``hbm_frac``, ``roofline_frac``, each held in (0, 1]) beside
+   the card's name and power limit; the learned workload once more through the chunked
+   runner (``run_stereo_vo_batched`` with ``frame_indices``), whose poses
+   and ok flags must equal the device runner's; then ``python -m
+   forest_slam_tpu_torch.bench --frames 97 --no-gates --runner chunked
+   --profile DIR`` in a process of its own, which must exit 0 with every
+   field of ``bench.py``'s emit, a non-null ``mfu`` and a written trace;
 12. the gate suite of ``bench.py`` (``forest_slam_tpu_torch.bench.run_gates``):
    each vo gate's clip rendered on the card, worst of seeds 0 and 1; the
    gates that pass in the JAX package's record (``BENCH_r05.json``) are held
@@ -146,7 +155,11 @@ Phases, each printing one line with its elapsed seconds:
    the learned path on the loaded frames with the rig's distortion zeroed,
    held to ATE below 0.25 m (Sim(3)); ``mono --bag`` (ORB, odometry, 32
    frames at stride 2) held to the mono rules; and ``view``; reader MB/s,
-   ``preprocess_frames`` ms a frame, pairs/s and ATE printed.
+   ``preprocess_frames`` ms a frame, pairs/s and ATE printed;
+16. last, the bench's device-time cross-check of both 962-pair workloads
+   (``device_pairs_per_sec``, which must be set), printed beside the card's
+   name and power limit: a ``torch.profiler`` window slows the host-bound
+   runs that follow it in the same process.
 
 The kernel checks also run the shapes the workload and the gates give the
 kernels: the sparse cost at 32 frames of K=1024 and of 512, the GNN layer at
@@ -240,28 +253,6 @@ def time_ms(fn, reps: int = 5, launches: int = 1) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def device_ms(fn, calls: int = 20, reps: int = 3) -> float:
-    """Device time of one fn() call: the sum of the device activity
-    torch.profiler records over `calls` calls, divided by `calls` (host
-    enqueue and the gaps between kernels left out); the median over `reps`
-    profiled windows after one warm-up call, since a window now and then
-    records only part of its kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    per_window = []
-    for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        per_window.append(us / 1e3 / calls)
-    return sorted(per_window)[len(per_window) // 2]
-
-
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -282,6 +273,7 @@ def sparse_case(dev, gen, shape):
     K): (max error, ok, bound (ms, by), inputs)."""
     from forest_slam_tpu_torch.stereo.sparse import prefilter
     from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows, sparse_cost_rows_plain
+    from forest_slam_tpu_torch.utils.roofline import kernel_costs
 
     B, H_, W_, K_ = shape
     D, w = SPARSE_D, SPARSE_W
@@ -293,9 +285,8 @@ def sparse_case(dev, gen, shape):
     yi = torch.randint(0, H_, (B, K_), generator=gen, device=dev, dtype=torch.int32)
     args = (pl, pr, xi, yi, D, w)
     err = (sparse_cost_rows(*args) - sparse_cost_rows_plain(*args)).abs().max().item()
-    S = D + w - 1
-    nbytes = B * 4 * (min(H_ * W_, K_ * w * w) + min(H_ * W_, K_ * w * S) + 2 * K_ + K_ * D)
-    return err, err == 0.0, bound(nbytes, B * K_ * D * w * w * 3, F32_OPS), args
+    ops, nbytes = kernel_costs("sparse_cost", B, H_, W_, K_, D, w)
+    return err, err == 0.0, bound(nbytes, ops, F32_OPS), args
 
 
 def check_sparse(dev, gen):
@@ -351,11 +342,10 @@ def gnn_case(dev, gen, ws, heads, N, K_, S, all_masked):
 
 
 def gnn_bound(ws, N, K_, S, D=256):
-    """The layer's least time: q and the merge over K tokens, k and v over S,
-    both attention products, the two-layer MLP over [x, message]; each input
-    and the weights read once, the output written once."""
-    ops = 2 * N * D * D * (2 * K_ + 2 * S) + 4 * N * K_ * S * D + 2 * N * K_ * (2 * D) * (2 * D) + 2 * N * K_ * 2 * D * D
-    nbytes = 2 * (2 * N * K_ * D + N * S * D) + N * S + sum(t.numel() * t.element_size() for t in ws)
+    """The layer's least time (roofline.gnn_layer_cost, the weights ``ws``)."""
+    from forest_slam_tpu_torch.utils.roofline import kernel_costs
+
+    ops, nbytes = kernel_costs("gnn_layer", N, K_, S, D, sum(t.numel() * t.element_size() for t in ws))
     return bound(nbytes, ops, BF16_OPS)
 
 
@@ -417,11 +407,9 @@ def sinkhorn_case(dev, gen, shape, alpha, iters):
 
 
 def sinkhorn_bound(B, K0, K1, iters):
-    # per table entry: the row max's compare, s - r and its exp, two
-    # multiply-adds an iteration (row and column sums), and a multiply and a
-    # compare for each decode; a multiply-add counts as 2
-    ops = B * K0 * K1 * (4 * iters + 7)
-    nbytes = B * (K0 * K1 * 4 + (K0 + K1) * 4 + 2 * (K0 + K1) * 4)
+    from forest_slam_tpu_torch.utils.roofline import kernel_costs
+
+    ops, nbytes = kernel_costs("sinkhorn_decode", B, K0, K1, iters)
     return bound(nbytes, ops, F32_OPS)
 
 
@@ -468,10 +456,10 @@ def refine_case(dev, gen, shape):
     frame-0 keypoints at the frame-1 keypoints' place scaled to frame 0:
     (max error, ok, bound (ms, by), inputs)."""
     from forest_slam_tpu_torch.frontend.refine_kernel import refine_cost_volume, refine_cost_volume_plain
+    from forest_slam_tpu_torch.utils.roofline import kernel_costs
 
     B, H0, W0, H1, W1, K_, R = shape
     t = REFINE_TEMPLATE
-    n, S = 2 * R + 1, 2 * R + t
     # integer-valued images: every SAD sum is exact, so agreement is bit for bit
     img0 = torch.randint(0, 256, (B, H0, W0), generator=gen, device=dev).float()
     img1 = torch.randint(0, 256, (B, H1, W1), generator=gen, device=dev).float()
@@ -482,10 +470,8 @@ def refine_case(dev, gen, shape):
     nvalid = torch.randint(K_ // 4, K_ + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
     args = (img0, img1, xi0, yi0, xi1, yi1, t, R, nvalid)
     err = (refine_cost_volume(*args) - refine_cost_volume_plain(*args)).abs().max().item()
-    nv = int(nvalid.sum().item())
-    nbytes = 4 * (sum(min(H0 * W0, int(v) * t * t) + min(H1 * W1, int(v) * S * S) for v in nvalid.tolist())
-                  + 4 * B * K_ + B + B * K_ * n * n)
-    return err, err == 0.0, bound(nbytes, nv * n * n * t * t * 3, F32_OPS), args
+    ops, nbytes = kernel_costs("refine_cost", B, H0, W0, H1, W1, K_, R, t, nvalid.tolist())
+    return err, err == 0.0, bound(nbytes, ops, F32_OPS), args
 
 
 def check_refine(dev, gen):
@@ -507,45 +493,6 @@ def check_refine(dev, gen):
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=None, per_shape=per_shape,
     )
-
-
-# float32 operations of the detection kernel (csrc/detect.cu), as its data
-# gates them. Every pixel of a level: the cell reduction (1). Every pixel
-# inside the edge margin: the exact early reject, ring points 0, 4, 8 and 12
-# (4 differences, 8 compares). Every pixel past it: the other 12
-# differences, their 24 compares into the bright and dark masks and two
-# run-of-9 tests of 8 shifts and ands (52). Every pixel of a row that holds a
-# FAST corner: Sobel, scaling and the three products (13) and the box sums
-# over rows (18). Every FAST corner: the box sums over columns (18), the
-# Harris response (7) and 3x3 NMS (9). (The earlier one-level kernel spent
-# 180 operations on FAST at every pixel inside the margin: 64 minima and 64
-# maxima over circular windows and 32 to pick the best arcs; the mask test
-# needs only whether an arc exists.)
-DETECT_OPS_PER_PIXEL = 1
-DETECT_OPS_PER_INTERIOR_PIXEL = 12
-DETECT_OPS_PER_CANDIDATE = 52
-DETECT_OPS_PER_CORNER_ROW_PIXEL = 31
-DETECT_OPS_PER_CORNER = 34
-
-
-def detect_ops(img, threshold, margin):
-    """The detection kernel's operations on (B, h, w) images, as above."""
-    import torch.nn.functional as F
-
-    from forest_slam_tpu_torch.frontend.fast import fast_score_map, interior_mask
-
-    B, h, w = img.shape
-    t = max(threshold, 0.0)
-    p = F.pad(img, (3, 3, 3, 3))
-    d = [p[:, 3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - img for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
-    bright = sum((x > t).int() for x in d)
-    dark = sum((x < -t).int() for x in d)
-    inside = interior_mask(h, w, max(margin, 3), img.device)
-    candidates = int((((bright >= 2) | (dark >= 2)) & inside).sum())
-    corners = (fast_score_map(img, threshold) > 0) & inside
-    return (DETECT_OPS_PER_PIXEL * B * h * w + DETECT_OPS_PER_INTERIOR_PIXEL * B * int(inside.sum())
-            + DETECT_OPS_PER_CANDIDATE * candidates + DETECT_OPS_PER_CORNER_ROW_PIXEL * w * int(corners.any(-1).sum())
-            + DETECT_OPS_PER_CORNER * int(corners.sum()))
 
 
 def detect_case(dev, gen, batch=FRAME_BATCH):
@@ -576,8 +523,8 @@ def detect_agreement(got, ref):
 
 
 def check_detect(dev, gen):
-    from forest_slam_tpu_torch.frontend.detect_kernel import (
-        detect_pooled, detect_pooled_levels, detect_pooled_plain, n_cells)
+    from forest_slam_tpu_torch.frontend.detect_kernel import detect_pooled, detect_pooled_levels, detect_pooled_plain
+    from forest_slam_tpu_torch.utils.roofline import detect_ops, kernel_costs
 
     levels, args = detect_case(dev, gen)
     plain = lambda: [detect_pooled_plain(lv, *args) for lv in levels]
@@ -590,9 +537,9 @@ def check_detect(dev, gen):
                                              close and b_close, n_finite + b_fin)
 
     def detect_bound(lvs):
-        nbytes = sum(4 * lv.numel() + 8 * lv.shape[0] * n_cells(*lv.shape[1:])[0] * n_cells(*lv.shape[1:])[1]
-                     for lv in lvs)
-        return bound(nbytes, sum(detect_ops(lv, args[0], args[2]) for lv in lvs), F32_OPS)
+        ops, nbytes = kernel_costs("detect", [tuple(lv.shape) for lv in lvs],
+                                   sum(detect_ops(lv, args[0], args[2]) for lv in lvs))
+        return bound(nbytes, ops, F32_OPS)
 
     b_ms, b_by = detect_bound(levels)
     return dict(
@@ -618,14 +565,6 @@ def peaky_heat(dev, gen, shape):
     return torch.where(peaks > 0.99, peaks, heat).contiguous()
 
 
-# comparisons per pixel of the select function: a separable (2r+1)^2 window
-# maximum done plainly (2 * 2r; csrc/select.cu shares partial maxima between
-# neighbouring windows and does fewer), the three tests and the block
-# reduction. The bytes bound it at every radius the paths use.
-def select_ops_per_pixel(radius):
-    return 4 * radius + 4
-
-
 # the select kernel's shapes: a batch of 8 960x600 heat maps, the lowres
 # gate's three octaves of 24 frames, the 962-pair workload's 32 frames and
 # the wide-baseline octaves of a K=10 gate's 16 frames
@@ -641,12 +580,13 @@ def select_case(dev, gen, shape):
     """The select kernel against its plain version on peaky heat of (B, H,
     W): (bit-exact, kept blocks, bound (ms, by), heat)."""
     from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max, nms_block_max_plain
+    from forest_slam_tpu_torch.utils.roofline import kernel_costs
 
     heat = peaky_heat(dev, gen, shape)
     v, i = nms_block_max(heat)
     rv, ri = nms_block_max_plain(heat)
-    B_, H_, W_ = shape
-    b = bound(4 * B_ * H_ * W_ + 8 * B_ * (H_ // 4) * (W_ // 4), select_ops_per_pixel(4) * B_ * H_ * W_, F32_OPS)
+    ops, nbytes = kernel_costs("select", *shape, 4)
+    b = bound(nbytes, ops, F32_OPS)
     return torch.equal(v, rv) and torch.equal(i, ri), int((rv > 0).sum().item()), b, heat
 
 
@@ -699,18 +639,20 @@ def check_attention(dev, gen):
     import torch.nn.functional as F
 
     from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward, masked_attention_plain
+    from forest_slam_tpu_torch.utils.roofline import kernel_costs
 
     B = 2 * PAIR_BATCH  # both images of a pair batch in one launch
     err, mean_err, _, ok, masked_row_err, (q, k, v, mask, scale) = attention_case(dev, gen, (B, HEADS, K, K))
     r_err, r_mean, r_top, r_ok, r_masked, _ = attention_case(dev, gen, ATTENTION_RAGGED)
     # the training step's shape: both images of 16 pairs, 48 corners
     t_err, t_mean, t_top, t_ok, t_masked, (tq, tk, tv, tmask, _) = attention_case(dev, gen, ATTENTION_TRAIN)
-    tb, th, tK, tS = ATTENTION_TRAIN
-    t_bound = bound(4 * tq.numel() * 2 + tmask.numel(), 4 * tb * th * tK * tS * HEAD_DIM, BF16_OPS)
+    t_ops, t_bytes = kernel_costs("attention", *ATTENTION_TRAIN, HEAD_DIM)
+    t_bound = bound(t_bytes, t_ops, BF16_OPS)
     t_amask = tmask[:, None, None, :]
     amask = mask[:, None, None, :]
     sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=amask, scale=scale)
-    b_ms, b_by = bound(4 * q.numel() * 2 + mask.numel(), 4 * B * HEADS * K * K * HEAD_DIM, BF16_OPS)
+    ops, nbytes = kernel_costs("attention", B, HEADS, K, K, HEAD_DIM)
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS)
     return dict(
         name="attention", source="forest_slam_tpu_torch/csrc/attention.cu",
         replaces="forest_slam_tpu/frontend/pallas_attention.py:149",
@@ -1896,6 +1838,51 @@ def path_failures(name, out, tracked, err, launches, path_kernels, n_pairs=N_FRA
     return failures
 
 
+BENCH_CLI_FRAMES = 97
+
+
+def bench_cli_phase(smi):
+    """``python -m forest_slam_tpu_torch.bench --frames 97 --no-gates
+    --runner chunked --profile DIR`` in a process of its own: it must exit 0,
+    end with a line holding every field of bench.py's emit with a non-null
+    mfu, and write its trace."""
+    import tempfile
+
+    from forest_slam_tpu_torch import bench
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "forest_slam_tpu_torch.bench", "--frames", str(BENCH_CLI_FRAMES), "--no-gates",
+               "--runner", "chunked", "--profile", tmp]
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.time() - t0
+        lines = proc.stdout.strip().splitlines()
+        try:
+            rec = json.loads(lines[-1]) if lines else {}
+        except ValueError:
+            rec = {}
+        missing = [k for k in bench.EMIT_KEYS if k not in rec]
+        trace = os.path.join(tmp, "trace.json")
+        traced = os.path.exists(trace) and os.path.getsize(trace) > 0
+        log(f"bench CLI ({' '.join(cmd[1:])}): exit {proc.returncode} in {seconds:.1f} s; {rec.get('value')} pairs/s, "
+            f"{rec.get('ok_frames')}/{rec.get('n_frames')} tracked, ATE {rec.get('ate_rmse')} m, mfu {rec.get('mfu')}, "
+            f"hbm_frac {rec.get('hbm_frac')}, roofline_frac {rec.get('roofline_frac')}, device_pairs_per_sec "
+            f"{rec.get('device_pairs_per_sec')}, on {torch.cuda.get_device_name(0)} ({smi}); trace written: {traced} "
+            f"({os.path.getsize(trace) if traced else 0} bytes); missing fields {missing}")
+        for line in proc.stderr.splitlines():
+            if "the ten operations" in line or line.startswith("#   "):
+                print("  " + line, flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+            failures.append(f"bench CLI: exit {proc.returncode}")
+        if missing or rec.get("mfu") is None or not traced:
+            failures.append(f"bench CLI: fields missing {missing}, mfu {rec.get('mfu')}, trace written {traced}")
+    print(json.dumps({"bench_cli": rec}), flush=True)
+    return failures
+
+
 def train_phase(dev, wrappers, launches_by_path, smi):
     """Train from create_train_state through ``train`` (the entry point's
     loop) on a pool rendered on the card: the loss must fall by the rule,
@@ -2192,6 +2179,19 @@ def main() -> int:
     compare("unfused-GNN", out, plain_out, t_plain)
     del plain_fe
 
+    # the unfused GNN with the stock library attention: bench.py --sg-gnn xla --sg-attention flash
+    fe_f = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev,
+                                 superglue_overrides={"gnn_impl": "xla", "attention_impl": "flash"})
+    _, _, t_cold = drive_path(wrappers, run_learned(cfg, learned_frontend(fe_f)))
+    log(f"flash-attention path warm-up run: {t_cold:.2f} s")
+    out, launches, t_run = drive_path(wrappers, run_learned(cfg, learned_frontend(fe_f)))
+    launches_by_path["flash"] = launches
+    tracked, err = report("unfused-GNN with scaled_dot_product_attention", out, t_run, launches)
+    failures += path_failures("flash", out, tracked, err, launches,
+                              ("select", "sparse_cost", "sinkhorn_decode", "refine_cost"), max_ate=float("inf"),
+                              idle_kernels=("gnn_layer", "attention"))
+    del fe_f
+
     # lowres gate: bench.py:626-682 at its default flags
     from forest_slam_tpu_torch import bench
 
@@ -2220,7 +2220,7 @@ def main() -> int:
     failures += mono_phase(wrappers, launches_by_path, smi, il, gt, rig, fe)
 
     # bench.py's 962-pair workload, learned then ORB
-    records = {}
+    records, timed_workloads = {}, {}
     for kind, n_timed, path_kernels in (("sp", 3, ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode",
                                                    "refine_cost")),
                                         ("orb", 1, ("detect", "sparse_cost"))):
@@ -2235,20 +2235,41 @@ def main() -> int:
         (times, out), launches, _ = drive_path(wrappers, lambda: bench.timed_runs(wl.run, n_timed))
         launches_by_path[name] = launches
         rec = bench.workload_record(out, wl.truth, times, wl.frontend)
-        records[name] = rec
+        # the bench's roofline, as python -m forest_slam_tpu_torch.bench runs it; its device-time
+        # cross-check comes at the end (a torch.profiler window slows this process's later runs)
+        roof = bench.roofline_record(wl, float(np.median(times)), dev)
+        rec.update({k: roof[k] for k in ("mfu", "hbm_frac", "roofline_frac", "bytes_accounting")})
+        records[name], timed_workloads[name] = rec, wl
         log(f"{name}: {rec['value']} pairs/s (median of {len(times)} runs {rec['runs_s']} s, spread "
             f"{rec['run_spread']}), {rec['ok_frames']}/{rec['n_frames']} pairs tracked, ATE {rec['ate_rmse']} m, "
-            f"RPE {rec['rpe']['rmse_pct']} % over {rec['rpe']['delta_m']} m ({rec['rpe']['n']} pairs), on "
+            f"RPE {rec['rpe']['rmse_pct']} % over {rec['rpe']['delta_m']} m ({rec['rpe']['n']} pairs); mfu "
+            f"{rec['mfu']}, hbm_frac {rec['hbm_frac']}, roofline_frac {rec['roofline_frac']} "
+            f"({roof['summary']['total_flops'] / 1e12:.3f} TFLOP, {roof['summary']['total_bytes'] / 1e9:.3f} GB), on "
             f"{torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
         failures += path_failures(name, out, rec["ok_frames"], rec["ate_rmse"], launches, path_kernels,
                                   n_pairs=rec["n_frames"], max_ate=BENCH_MAX_ATE_M)
+        bad = [k for k in ("mfu", "hbm_frac", "roofline_frac") if rec[k] is None or not 0 < rec[k] <= 1]
+        if bad:
+            failures.append(f"{name}: roofline shares not in (0, 1]: {bad}")
         if kind == "sp":
+            # the chunked runner (bench.py --runner chunked) on the same workload: the device runner's poses
+            chunked, launches, t_chunked = drive_path(wrappers, wl.runs["chunked"])
+            launches_by_path["bench_learned_chunked"] = launches
+            same = torch.equal(chunked.pose, out.pose) and torch.equal(chunked.ok, out.ok)
+            log(f"{name} through the chunked runner (frame_indices, each chunk gathered): {t_chunked:.3f} s, "
+                f"{rec['n_frames'] / t_chunked:.2f} pairs/s; poses and ok flags equal to the device runner's: {same}; "
+                f"launches {launches}")
+            if not same:
+                failures.append(f"{name}: the chunked runner's poses or ok flags differ from the device runner's")
+            failures += path_failures(f"{name} chunked", chunked, int(chunked.ok.sum().item()), rec["ate_rmse"],
+                                      launches, path_kernels, n_pairs=rec["n_frames"], max_ate=BENCH_MAX_ATE_M)
+            del chunked
             err, _ = bench.trajectory_errors(out.pose, wl.truth)
             learned_workload = (wl, dict(tracked=rec["ok_frames"], ate_m=err.rmse, seconds=float(np.median(times)),
                                          pairs_per_s=rec["n_frames"] / float(np.median(times))))
         del wl, out
         torch.cuda.empty_cache()
-    print(json.dumps({"bench": records}), flush=True)
+    failures += bench_cli_phase(smi)
 
     # the back end: loop closure, relocalization, the workload with BA and SLAM, the sequential runners
     failures += slam_phase(dev, wrappers, launches_by_path, smi, fe, (il, ir, gt, rig), learned_workload)
@@ -2291,6 +2312,19 @@ def main() -> int:
         return int(out.ok.sum().item()), n_pairs, ate(out.pose, gt)
 
     failures += distill_phase(dev, wrappers, launches_by_path, smi, track_clip)
+
+    # the 962-pair workloads' device-time cross-check (bench.cross_check), last: a torch.profiler window slows
+    # this process's later host-bound runs (ORB 1.438 -> 1.674 s a run, training and distillation too)
+    for name, wl in timed_workloads.items():
+        rec = records[name]
+        rec["device_pairs_per_sec"] = bench.cross_check(wl, rec["value"])
+        log(f"{name}: device_pairs_per_sec {rec['device_pairs_per_sec']} (wall {rec['value']} pairs/s), mfu "
+            f"{rec['mfu']}, hbm_frac {rec['hbm_frac']}, roofline_frac {rec['roofline_frac']}, on "
+            f"{torch.cuda.get_device_name(0)} ({smi})")
+        if not rec["device_pairs_per_sec"]:
+            failures.append(f"{name}: no device_pairs_per_sec")
+    del timed_workloads
+    print(json.dumps({"bench": records}), flush=True)
 
     if failures:
         print("FAIL: " + "; ".join(failures), file=sys.stderr)

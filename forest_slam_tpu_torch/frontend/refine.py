@@ -27,7 +27,9 @@ class RefineConfig(NamedTuple):
     template: int = 8  # template side (even: centred on the pixel grid)
     max_cost_ratio: float = 0.9  # best/second-best uniqueness gate
     # "auto": the CUDA kernel for CUDA tensors (its plain version on CPU);
-    # "plain": the plain version on any device.
+    # "plain" (or the JAX name "xla"): the plain version on any device;
+    # "pallas" (the JAX name of the kernel route): the CUDA kernel, and an
+    # error for CPU tensors
     cost_path: str = "auto"
     # template-to-window scale ratios searched: forward motion enlarges
     # approaching patches, so each s != 1 matches frame 0 upscaled by s
@@ -59,9 +61,14 @@ def _refine_single(img0, img1, xy0, xy1, valid, cfg: RefineConfig, nvalid):
     yi1 = torch.round(xy1[..., 1]).long().clamp(0, H1 - 1).to(torch.int32).contiguous()
     args = (img0.float().contiguous(), img1.float().contiguous(), xi0, yi0, xi1, yi1, t, R,
             nvalid.to(torch.int32).contiguous())
-    if cfg.cost_path == "plain":
+    if cfg.cost_path in ("plain", "xla"):
         cost = refine_cost_volume_plain(*args)
     elif cfg.cost_path == "auto":
+        cost = refine_cost_volume(*args)
+    elif cfg.cost_path == "pallas":
+        if img1.device.type != "cuda":
+            raise ValueError("cost_path 'pallas' runs the CUDA kernel, which takes CUDA tensors; "
+                             f"got {img1.device.type} tensors ('auto' takes the plain version there)")
         cost = refine_cost_volume(*args)
     else:
         raise ValueError(f"unknown cost_path {cfg.cost_path!r}")

@@ -49,15 +49,19 @@ class SuperGlueConfig(NamedTuple):
     num_heads: int = 4
     sinkhorn_iterations: int = 20
     match_threshold: float = 0.2
-    # "auto": the CUDA kernels for CUDA tensors (their plain versions on
-    # CPU); "plain": the plain versions on any device. gnn_impl "xla" runs
-    # the unfused per-op layer (bench.py --sg-gnn xla) with attention_impl.
+    # "auto" (or the JAX name "fused"): the CUDA kernels for CUDA tensors
+    # (their plain versions on CPU); "plain": the plain versions on any
+    # device. gnn_impl "xla" runs the unfused per-op layer (bench.py
+    # --sg-gnn xla) with attention_impl.
     gnn_impl: str = "auto"
     sinkhorn_impl: str = "auto"
-    # attention of the unfused layer: "auto" the differentiable attention
-    # Function (the kernel for CUDA tensors), "plain" its plain version on
-    # any device, "xla" the dense einsum + softmax in softmax_dtype
-    # (bench.py --sg-attention xla); training takes the one configured
+    # attention of the unfused layer: "auto" (or "fused") the differentiable
+    # attention Function (the kernel for CUDA tensors), "plain" its plain
+    # version on any device, "xla" the dense einsum + softmax in
+    # softmax_dtype (bench.py --sg-attention xla), "flash" the stock library
+    # op, torch's scaled_dot_product_attention (bench.py --sg-attention
+    # flash: the stock Pallas flash op there); training takes the one
+    # configured
     attention_impl: str = "auto"
     softmax_dtype: str = "float32"  # or "bfloat16"
 
@@ -107,13 +111,29 @@ def dense_attention(q, k, v, source_mask, softmax_dtype: str = "float32"):
     return _bf(attn.float() @ v.float())
 
 
+def flash_attention(q, k, v, source_mask):
+    """The stock library op on (B, h, K, dh) bf16 heads:
+    ``scaled_dot_product_attention`` over the valid sources. A sequence
+    whose sources are all masked averages v over all of them, as the dense
+    path's finite NEG mask makes it do (the library op gives NaN there):
+    it attends with zero queries over every source."""
+    import torch.nn.functional as F
+
+    dead = ~source_mask.any(dim=-1, keepdim=True)  # (B, 1)
+    q = torch.where(dead[:, :, None, None], torch.zeros_like(q), q)
+    mask = (source_mask | dead)[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0 / q.shape[-1] ** 0.5)
+
+
 def attention(q, k, v, source_mask, impl: str = "auto", softmax_dtype: str = "float32"):
     """Masked multi-head attention of (B, h, K, dh) bf16 heads by
     ``attention_impl``."""
     if impl == "xla":
         return dense_attention(q, k, v, source_mask, softmax_dtype)
+    if impl == "flash":
+        return flash_attention(q, k, v, source_mask)
     scale = 1.0 / q.shape[-1] ** 0.5
-    if impl == "auto":
+    if impl in ("auto", "fused"):
         return masked_attention(q, k, v, source_mask, scale)
     if impl == "plain":
         return masked_attention_plain(q, k, v, source_mask, scale)
@@ -178,7 +198,7 @@ class GnnLayer(nn.Module):
                                      self.cfg.softmax_dtype)
         if impl == "plain":
             return gnn_layer_plain(x, src, src_mask, self.weights(), self.num_heads)
-        if impl != "auto":
+        if impl not in ("auto", "fused"):
             raise ValueError(f"unknown gnn_impl {impl!r}")
         return gnn_layer(x, src, src_mask, self.weights(), self.num_heads)
 

@@ -23,8 +23,10 @@ runners draw differently.
 
 :func:`run_stereo_vo` is the host entry point (ORB by default; ``ba=`` adds
 sliding-window bundle adjustment, backend/window.py);
-:func:`run_stereo_vo_device` takes any front end and returns, when asked,
-the artifacts the back end consumes.
+:func:`run_stereo_vo_batched` (the chunked runner, which can gather a
+virtual sequence one chunk at a time) and :func:`run_stereo_vo_device` (the
+same loop over the stacks as given) take any front end and return, when
+asked, the artifacts the back end consumes.
 """
 
 from __future__ import annotations
@@ -224,33 +226,41 @@ def chain_and_map(pairs: PairVO, initial: torch.Tensor) -> StereoStepOut:
 
 
 @torch.no_grad()
-def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, generator: torch.Generator | None,
-                         frontend: FrontendFns, frame_batch: int = 8, pair_batch: int = 8,
-                         return_artifacts: bool = False, gumbel=None, uniform=None):
-    """Whole-sequence VO of (N, H, W) stereo stacks in [0, 255]: frames
-    1..N-1 relative to frame 0. Batch loops stand in for the JAX runner's
-    ``lax.map``; the PnP draws come from ``generator`` or, when it is None,
-    from ``gumbel`` (N-1, n_hypotheses, K) and ``uniform`` (N-1, K). With
+def run_stereo_vo_batched(images_l, images_r, rig: StereoRig, cfg: StereoConfig, generator: torch.Generator | None,
+                          frontend: FrontendFns, frame_chunk: int = 32, pair_chunk: int = 64, frame_indices=None,
+                          return_artifacts: bool = False, gumbel=None, uniform=None):
+    """Whole-sequence VO of (N, H, W) stereo stacks in [0, 255] as a host
+    loop over chunks (pipelines/stereo.py:run_stereo_vo_batched): features
+    and depths a frame chunk at a time, then VO a pair chunk at a time, then
+    the chain; frames 1..N-1 relative to frame 0. With ``frame_indices``
+    ((M,) ints) it runs the virtual sequence ``images[frame_indices]``
+    without building it: each chunk gathers its own frames. The PnP draws
+    come from ``generator``, a pair chunk at a time, or, when it is None,
+    from ``gumbel`` (M-1, n_hypotheses, K) and ``uniform`` (M-1, K). With
     ``cfg.photo_norm`` every frame is exposure-compensated first. With
     ``return_artifacts``: (outputs, backend.window.StereoArtifacts)."""
     require_draws(generator, gumbel, uniform)
     if cfg.photo_norm:
         images_l, images_r = photo_normalize_stack(images_l), photo_normalize_stack(images_r)
-    n = images_l.shape[0]
+    idx = None if frame_indices is None else torch.as_tensor(frame_indices, dtype=torch.long, device=images_l.device)
+    n = images_l.shape[0] if idx is None else idx.shape[0]
+
+    def frames(stack, s, e):
+        return stack[s:e] if idx is None else stack[idx[s:e]]
     image_shape = tuple(images_l.shape[1:])
-    parts = [frame_features(images_l[s:s + frame_batch], images_r[s:s + frame_batch], rig, cfg, frontend)
-             for s in range(0, n, frame_batch)]
+    parts = [frame_features(frames(images_l, s, s + frame_chunk), frames(images_r, s, s + frame_chunk), rig, cfg,
+                            frontend) for s in range(0, n, frame_chunk)]
     feats = _cat([p[0] for p in parts])
     slab = FrameSlab(feats, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts]))
     refine = cfg.match_refine_radius > 0
     outs = []
-    for s in range(0, n - 1, pair_batch):
-        e = min(s + pair_batch, n - 1)
+    for s in range(0, n - 1, pair_chunk):
+        e = min(s + pair_chunk, n - 1)
         prev = FrameSlab(_map(lambda a: a[s:e], feats), slab.z[s:e], slab.z_ok[s:e])
         cur = _map(lambda a: a[s + 1:e + 1], feats)
         outs.append(pair_from_slab(
             prev.feats, prev.z, prev.z_ok, cur, rig, cfg, frontend, image_shape,
-            images_l[s:e] if refine else None, images_l[s + 1:e + 1] if refine else None,
+            frames(images_l, s, e) if refine else None, frames(images_l, s + 1, e + 1) if refine else None,
             generator=generator, gumbel=None if gumbel is None else gumbel[s:e],
             uniform=None if uniform is None else uniform[s:e],
         ))
@@ -262,6 +272,19 @@ def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, 
 
     return out, StereoArtifacts(xy=feats.xy, valid=feats.valid, z=slab.z, z_ok=slab.z_ok, matches=pairs.matches,
                                 feats=feats)
+
+
+def run_stereo_vo_device(images_l, images_r, rig: StereoRig, cfg: StereoConfig, generator: torch.Generator | None,
+                         frontend: FrontendFns, frame_batch: int = 8, pair_batch: int = 8,
+                         return_artifacts: bool = False, gumbel=None, uniform=None):
+    """Whole-sequence VO of (N, H, W) stereo stacks (the JAX runner of one
+    program, ``lax.map`` over batches): :func:`run_stereo_vo_batched` over
+    the stacks as given, with frame and pair batches of ``frame_batch`` and
+    ``pair_batch``. Equal batches and draws give the chunked runner's poses
+    and flags bit for bit."""
+    return run_stereo_vo_batched(images_l, images_r, rig, cfg, generator, frontend, frame_chunk=frame_batch,
+                                 pair_chunk=pair_batch, return_artifacts=return_artifacts, gumbel=gumbel,
+                                 uniform=uniform)
 
 
 class StereoState(NamedTuple):

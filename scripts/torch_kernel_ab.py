@@ -25,7 +25,8 @@ both checkouts get the same inputs and the same tolerances.
 Two times per kernel and call: ``ms``, the median of 7 CUDA-event timings of
 20 calls back to back, after a warm-up (it holds the gaps between launches
 where the host enqueues more slowly than the card runs a small kernel), and
-``device_ms``, the device time ``torch.profiler`` records over 20 calls,
+``device_ms``, the device time ``torch.profiler`` records over 20 calls
+(``forest_slam_tpu_torch.bench.device_ms`` of this repository),
 divided by 20 (the median of three such windows). ``--sinkhorn-clusters``
 also times the Sinkhorn kernel with each of the given cluster sizes forced
 (checkouts whose wrapper has ``_launch(..., cluster)``). ``--kernels``
@@ -56,11 +57,20 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def load_chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+def load_file(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_chip_smoke():
+    """This repository's chip_smoke.py, with this repository's kernel cost
+    formulas (utils/roofline.py, which it imports) whatever checkout the
+    kernels come from."""
+    sys.modules["forest_slam_tpu_torch.utils.roofline"] = load_file(
+        "forest_slam_tpu_torch.utils.roofline", os.path.join(REPO, "forest_slam_tpu_torch", "utils", "roofline.py"))
+    return load_file("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
 
 
 def main() -> int:
@@ -82,6 +92,8 @@ def main() -> int:
         print("FAIL: needs a CUDA card", file=sys.stderr)
         return 1
     smoke = load_chip_smoke()
+    # the device timer of this repository's bench (it imports only numpy and torch at module level)
+    device_ms = load_file("bench_timing", os.path.join(REPO, "forest_slam_tpu_torch", "bench.py")).device_ms
     from forest_slam_tpu_torch import _build
     from forest_slam_tpu_torch.frontend import detect_kernel
     from forest_slam_tpu_torch.frontend.attention_kernel import attention_forward
@@ -110,7 +122,7 @@ def main() -> int:
 
     def timed(name, ok, fn, **extra):
         out["kernels"][name] = dict(ok=bool(ok), ms=smoke.time_ms(fn, reps=7, launches=20),
-                                    device_ms=smoke.device_ms(fn, calls=20), **extra)
+                                    device_ms=device_ms(fn, calls=20), **extra)
 
     def detect_call(levels, args):
         if hasattr(detect_kernel, "detect_pooled_levels"):

@@ -5,7 +5,7 @@
 
 The measurements behind the design choices that ``csrc/select.cu`` and
 ``csrc/sparse_cost.cu`` state in their notes, on ``chip_smoke.py``'s inputs
-(device ms a call under ``torch.profiler``, ``chip_smoke.device_ms``; each
+(device ms a call under ``torch.profiler``, ``forest_slam_tpu_torch.bench.device_ms``; each
 variant twice, in turns):
 
 - ``select`` at (8, 600, 960) and (24, 256, 352) with bands of 8, 12, 16
@@ -105,6 +105,7 @@ def main() -> int:
         return 1
     smoke = load_chip_smoke()
     from forest_slam_tpu_torch import _build
+    from forest_slam_tpu_torch.bench import device_ms
     from forest_slam_tpu_torch.frontend.select_kernel import launch_plan as select_plan
     from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max_plain
     from forest_slam_tpu_torch.stereo.sparse_kernel import launch_plan as sparse_plan
@@ -122,7 +123,7 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         ok = check()
-        ms = [smoke.device_ms(fn) for _ in range(2)]
+        ms = [device_ms(fn) for _ in range(2)]
         out["variants"].append(dict(kernel=kernel, variant=label, shape=list(shape), ok=ok, device_ms=ms, **info))
         print(f"{kernel} {label} at {tuple(shape)}: {ms[0]:.4f}, {ms[1]:.4f} ms device time a call"
               f"{'' if ok else ' DISAGREES WITH THE PLAIN VERSION'} {info}", flush=True)

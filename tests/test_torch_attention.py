@@ -164,6 +164,6 @@ def test_unknown_impls_raise():
         "mlp1": {"kernel": np.zeros((512, 256)), "bias": np.zeros(256)},
     }, 4)
     with pytest.raises(ValueError, match="attention_impl"):
-        gnn_layer_unfused(x, x, torch.ones((1, 8), dtype=torch.bool), ws, 4, "flash")
+        gnn_layer_unfused(x, x, torch.ones((1, 8), dtype=torch.bool), ws, 4, "stock")
     with pytest.raises(ValueError, match="source_mask"):
         attention_forward(*(torch.zeros((1, 4, 8, 64)),) * 3, torch.ones((1, 9), dtype=torch.bool), SCALE)

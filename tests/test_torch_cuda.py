@@ -23,7 +23,10 @@ graph, batched BA and window BA on the card within 1e-4 of the CPU, loop
 verification's batch with the same draws and the learned matcher's batch
 against the CPU's plain versions, streaming equal to the scan. The bag
 loader (``-k bag``): frames undistorted onto the card within 1e-3 grey
-levels of the CPU's.
+levels of the CPU's. The bench's routes (``-k "flash or pallas_equals"``):
+``--sg-attention flash`` (``scaled_dot_product_attention``) against the
+dense path and the plain version, and ``--refine-cost-path pallas`` equal to
+``xla``.
 """
 
 import pytest
@@ -1031,3 +1034,45 @@ def test_bag_loader_card_matches_cpu(cuda, tmp_path):
         assert a.shape == (3, 600, 960)
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3)
     np.testing.assert_array_equal(card.timestamps, cpu.timestamps)
+
+
+# --sg-attention flash: the library's scaled_dot_product_attention against the
+# dense path (bf16 logits) and the plain version (float32 logits, the
+# attention kernel's numerics), with the last sequence's sources all masked;
+# tolerances as tests/test_torch_bench_flags.py's flash_tolerances
+@pytest.mark.parametrize("shape", [(16, 4, 1024, 1024), (3, 4, 150, 130)])
+def test_flash_attention_against_the_dense_path(cuda, shape):
+    from forest_slam_tpu_torch.frontend.superglue import attention, dense_attention
+
+    dev, g = cuda
+    B, h, K, S = shape
+    q = (torch.randn((B, h, K, 64), generator=g, device=dev) * 2).to(torch.bfloat16)
+    k = (torch.randn((B, h, S, 64), generator=g, device=dev) * 2).to(torch.bfloat16)
+    v = torch.randn((B, h, S, 64), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.rand((B, S), generator=g, device=dev) < 0.7
+    mask[-1] = False
+    flash = attention(q, k, v, mask, "flash").float()
+    dense = dense_attention(q, k, v, mask, "bfloat16").float()
+    plain = masked_attention_plain(q, k, v, mask, 1.0 / 8.0).float()
+    top = dense.abs().max()
+    assert torch.isfinite(flash).all()
+    assert (flash - dense).abs().max() <= 2.0 ** -5 * top and (flash - dense).abs().mean() <= 2.0 ** -9 * top
+    assert (flash - plain).abs().max() <= 2.0 ** -7 * top and (flash - plain).abs().mean() <= 1e-3 * top
+    assert (flash[-1] - v[-1].float().mean(dim=1, keepdim=True)).abs().max() <= 2.0 ** -7
+
+
+# --refine-cost-path pallas (the kernel, strictly) against xla (the plain
+# version) through the refinement, on integer images: equal
+def test_refine_cost_path_pallas_equals_xla(cuda):
+    from forest_slam_tpu_torch.frontend.refine import RefineConfig, refine_matches_quality
+
+    dev, g = cuda
+    img0, img1 = (torch.randint(0, 256, (4, 600, 960), generator=g, device=dev).float() for _ in range(2))
+    xy0 = torch.rand((4, 1024, 2), generator=g, device=dev) * torch.tensor([959.0, 599.0], device=dev)
+    xy1 = xy0 + torch.randn((4, 1024, 2), generator=g, device=dev) * 3
+    valid = torch.rand((4, 1024), generator=g, device=dev) < 0.8
+    for scales in ((1.0,), (1.0, 1.2)):
+        a, b = (refine_matches_quality(img0, img1, xy0, xy1, valid, RefineConfig(radius=12, cost_path=p, scales=scales))
+                for p in ("pallas", "xla"))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

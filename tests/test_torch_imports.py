@@ -58,7 +58,7 @@ def test_port_imports_no_jax():
                 "backend", "backend.mapping", "backend.pose_graph", "backend.ba", "backend.window",
                 "backend.loop_closure", "backend.relocalize", "io.ply", "pipelines.slam", "io.lz4f", "io.rosbag",
                 "io.calib", "io.dataset", "native", "eval.association", "eval.groundtruth", "eval.viewer",
-                "eval.plots"):
+                "eval.plots", "utils.roofline", "bench"):
         assert "forest_slam_tpu_torch." + mod in names
 
 
