@@ -123,7 +123,24 @@ Phases, each printing one line with its elapsed seconds:
    step and no other kernel; steps/s printed with the card's name and power
    limit; the trained weights written by ``save_params`` and read back by
    ``load_learned_frontend`` unchanged;
-14. distillation (``python -m forest_slam_tpu_torch.train.distill``'s
+14. multi-GPU, on one card through NCCL with a one-rank ``make_mesh(1)``:
+   (a) ``make_sharded_train_step`` at the training phase's full width on a
+   16-pair batch (a 16-pair corridor pool), held against the unsharded
+   ``train_step`` on the same batch and parameters (loss terms and
+   gradients within ``TRAIN_AGREEMENT``, the update's norm within 5%),
+   the step launching ``attention`` 18 times and no other kernel; (b)
+   ``run_batched_eval`` on 4 distinct 960x600 sequences of 16 frames
+   (world seed s, speed 0.12 + 0.02 s), the learned flagship (K=1024,
+   radius 12) and then the ORB path's configuration, each sequence's poses
+   and ok flags equal bit for bit to ``run_stereo_vo_device`` on it alone
+   with the generator seeded from (seed, s), each held to 90% tracked and
+   ATE below 0.25 m, the learned run launching ``select``,
+   ``sparse_cost``, ``gnn_layer``, ``sinkhorn_decode`` and
+   ``refine_cost``, the ORB run ``detect`` and ``sparse_cost``; (c)
+   ``python -m forest_slam_tpu_torch.parallel.dryrun 1`` in a process of its
+   own, which must exit 0; seconds, sequences/s and steps/s printed with the
+   card's name and power limit;
+15. distillation (``python -m forest_slam_tpu_torch.train.distill``'s
    round-5 recipe at full width: teacher
    ``weights/learned_frontend_stem2_subpix_wide.msgpack``, a stem-4
    student, batch 8 of 240x320, lr 1e-3, w_scale 2, w_blur 0.7, w_subpix
@@ -134,7 +151,7 @@ Phases, each printing one line with its elapsed seconds:
    the checkpoint read back (the student equal, the teacher's SuperGlue
    subtree byte-equal, stem 4) and loaded by ``load_learned_frontend``;
    the distilled front end's tracking of the 31-pair clip printed, not held;
-15. bag input (run after the back end): a BotanicGarden-shaped bag written
+16. bag input (run after the back end): a BotanicGarden-shaped bag written
    under a temporary directory (removed at the end): bench.py's corridor
    world and 64 unique workload poses ping-ponged to 129 frames at 10 Hz,
    rendered at the BotanicGarden rig (left at K_left, right at K_right
@@ -156,7 +173,7 @@ Phases, each printing one line with its elapsed seconds:
    held to ATE below 0.25 m (Sim(3)); ``mono --bag`` (ORB, odometry, 32
    frames at stride 2) held to the mono rules; and ``view``; reader MB/s,
    ``preprocess_frames`` ms a frame, pairs/s and ATE printed;
-16. last, the bench's device-time cross-check of both 962-pair workloads
+17. last, the bench's device-time cross-check of both 962-pair workloads
    (``device_pairs_per_sec``, which must be set), printed beside the card's
    name and power limit: a ``torch.profiler`` window slows the host-bound
    runs that follow it in the same process.
@@ -1769,15 +1786,15 @@ def bag_phase(dev, wrappers, launches_by_path, smi):
     return failures
 
 
-def render_frames(dev, h, w, n):
+def render_frames(dev, h, w, n, seed=0, speed=0.15):
     """n consecutive corridor frames at w x h rendered on the card: (left,
     right, ground-truth poses, rig)."""
     from forest_slam_tpu_torch.core.lie import se3_compose
     from forest_slam_tpu_torch.io.synthetic import corridor_trajectory, default_rig, make_corridor_world, render_view
 
-    world = make_corridor_world(seed=0, device=dev)
+    world = make_corridor_world(seed=seed, device=dev)
     rig = default_rig(h, w, baseline=0.25, device=dev)
-    Ts = corridor_trajectory(n, speed=0.15, device=dev)
+    Ts = corridor_trajectory(n, speed=speed, device=dev)
     il, ir = [], []
     for s in range(0, n, 8):
         T = Ts[s:s + 8]
@@ -1966,6 +1983,144 @@ def train_phase(dev, wrappers, launches_by_path, smi):
             f"load_learned_frontend: {'equal weights' if ok else 'DIFFERENT'}")
     if not ok:
         failures.append("train: the checkpoint read back differs from the trained weights")
+    return failures
+
+
+# the multi-GPU phase: parallel/, pipelines/batch_eval.py and the sharded
+# train step on one card, one NCCL rank (the driver's machine has one)
+MULTICHIP_SEQS, MULTICHIP_FRAMES = 4, 16
+MULTICHIP_POOL = 16
+MULTICHIP_UPDATE_RTOL = 5e-2  # tests/test_training.py's bound on the update norm
+MULTICHIP_KERNELS = {"learned": ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"),
+                     "orb": ("detect", "sparse_cost")}
+DRYRUN_TIMEOUT_S = 300
+
+
+def multichip_phase(dev, wrappers, launches_by_path, smi, fe, orb_cfg):
+    """make_mesh(1) on the card: the sharded train step against train_step,
+    run_batched_eval against run_stereo_vo_device with both front ends, and
+    the dry run in a process of its own."""
+    from forest_slam_tpu_torch.frontend.base import learned_frontend, orb_frontend
+    from forest_slam_tpu_torch.parallel import make_mesh
+    from forest_slam_tpu_torch.pipelines.batch_eval import run_batched_eval, sequence_seed
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo_device
+    from forest_slam_tpu_torch.train.data import make_corridor_pool, make_training_batch
+    from forest_slam_tpu_torch.train.trainer import create_train_state, make_sharded_train_step, train_step
+
+    failures = []
+    t_phase = time.time()
+    mesh = make_mesh(1, "cuda")
+    log(f"multichip: make_mesh(1): {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+        f"{torch.distributed.get_backend()}, rank {torch.distributed.get_rank()} of "
+        f"{torch.distributed.get_world_size()}")
+
+    # (a) the sharded train step against train_step, same batch and parameters
+    cfg = train_config()
+    state = create_train_state(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    pool = make_corridor_pool(gen, MULTICHIP_POOL, TRAIN_H, TRAIN_W, TRAIN_M, device=dev)
+    batch = make_training_batch(gen, TRAIN_BATCH, TRAIN_H, TRAIN_W, TRAIN_M, cfg.texture_fraction,
+                                cfg.corridor_fraction, pool, dev)
+    ref = step_gradients(state.frontend, batch, cfg)
+    step, sharded = make_sharded_train_step(mesh, state, cfg)
+    host = lambda grads: {n: g.detach().double().cpu().numpy().ravel() for n, g in grads.items()}
+    _, g_sp = step.gradients(sharded, batch, of=lambda m: m["detector"] + m["descriptor"])
+    metrics, g_all = step.gradients(sharded, batch)
+    got = ({k: float(v) for k, v in metrics.items()}, host(g_all), host(g_sp))
+    agree = step_agreement(ref, got)
+    start = {n: p.detach().clone() for n, p in state.frontend.named_parameters()}
+    (sharded, step_metrics), launches, t_step = drive_path(wrappers, lambda: step(sharded, batch))
+    launches_by_path["multichip_train"] = launches
+    state, _ = train_step(state, batch, cfg)
+    full = step.parameters(sharded)
+    norm = lambda new: float(sum(float(((new[n] - start[n]).double() ** 2).sum()) for n in start) ** 0.5)
+    n_ref = norm({n: p.detach() for n, p in state.frontend.named_parameters()})
+    n_got = norm(full)
+    upd_rel = abs(n_got - n_ref) / max(n_ref, 1e-30)
+    ok_train = agree["ok"] and upd_rel <= MULTICHIP_UPDATE_RTOL and sharded.step == 1
+    log(f"multichip: sharded train step ({len(sharded.shards)} kernels sharded over model=1) against train_step: "
+        "relative loss differences " + ", ".join(f"{k} {v:.3g}" for k, v in agree["rel"].items())
+        + f"; gradient cosine {agree['global_cos']:.6f}, rel-L2 {agree['global_rel']:.4f}, least leaf cosine "
+        f"{agree['leaf_min_cos']:.5f} ({agree['leaves_checked']} leaves); update norm {n_got:.6g} vs {n_ref:.6g} "
+        f"(relative {upd_rel:.3g}, bound {MULTICHIP_UPDATE_RTOL}): {'PASS' if ok_train else 'FAIL'}; one step "
+        f"{t_step:.3f} s ({1 / t_step:.2f} steps/s) on {torch.cuda.get_device_name(0)} ({smi}); launches {launches}")
+    if not ok_train:
+        failures.append("multichip: the sharded train step disagrees with train_step")
+    if launches["attention"] != 2 * cfg.superglue.gnn_layers:
+        failures.append(f"multichip: {launches['attention']} attention launches in the sharded step, not "
+                        f"{2 * cfg.superglue.gnn_layers}")
+    busy = [k for k, n in launches.items() if k != "attention" and n]
+    if busy:
+        failures.append(f"multichip: kernels launched that the training step must not run: {busy}")
+    del state, sharded, step, pool, batch, ref, got, g_all, g_sp, full, start
+    torch.cuda.empty_cache()
+
+    # (b) run_batched_eval on 4 distinct 960x600 sequences, learned then ORB
+    seqs = [render_frames(dev, H, W, MULTICHIP_FRAMES, seed=s, speed=0.12 + 0.02 * s) for s in range(MULTICHIP_SEQS)]
+    il = torch.stack([q[0] for q in seqs])
+    ir = torch.stack([q[1] for q in seqs])
+    gt = torch.stack([q[2] for q in seqs])
+    rig = seqs[0][3]
+    del seqs
+    runs = {"learned": (StereoConfig(n_hypotheses=1024, compose_mode="odometry", match_refine_radius=12),
+                        learned_frontend(fe)),
+            "orb": (orb_cfg, None)}
+    record = {}
+    for name, (scfg, frontend) in runs.items():
+        (results, poses, ok), launches, t_run = drive_path(
+            wrappers, lambda: run_batched_eval(il, ir, gt, rig, scfg, mesh, frontend=frontend, frame_batch=FRAME_BATCH,
+                                               pair_batch=PAIR_BATCH, with_ok=True))
+        launches_by_path[f"multichip_{name}"] = launches
+        same = []
+        for s in range(MULTICHIP_SEQS):
+            g = torch.Generator(device=dev)
+            g.manual_seed(sequence_seed(0, s))
+            alone = run_stereo_vo_device(il[s], ir[s], rig, scfg, g,
+                                         frontend or orb_frontend(scfg.orb, scfg.max_match_distance),
+                                         frame_batch=FRAME_BATCH, pair_batch=PAIR_BATCH)
+            same.append(bool(np.array_equal(poses[s], alone.pose.double().cpu().numpy())
+                             and np.array_equal(ok[s], alone.ok.cpu().numpy())))
+        n_pairs = MULTICHIP_FRAMES - 1
+        tracked = [int(o.sum()) for o in ok]
+        ates = [r.ate_rmse for r in results]
+        log(f"multichip: run_batched_eval, {name}, {MULTICHIP_SEQS} sequences of {MULTICHIP_FRAMES} frames at {W}x{H}: "
+            f"tracked {tracked} of {n_pairs}, ATE {[round(a, 4) for a in ates]} m; each equal to run_stereo_vo_device "
+            f"alone: {same}; {t_run:.3f} s, {MULTICHIP_SEQS / t_run:.3f} sequences/s, "
+            f"{MULTICHIP_SEQS * n_pairs / t_run:.2f} pairs/s on {torch.cuda.get_device_name(0)} ({smi}); "
+            f"launches {launches}")
+        record[name] = dict(tracked=tracked, ate_m=ates, seconds=t_run, sequences_per_s=MULTICHIP_SEQS / t_run,
+                            equal_alone=same, launches=launches)
+        if not all(same):
+            failures.append(f"multichip {name}: a sequence's poses or ok flags differ from run_stereo_vo_device's")
+        for s in range(MULTICHIP_SEQS):
+            if tracked[s] < MIN_TRACKED * n_pairs or not ates[s] < MAX_ATE_M:
+                failures.append(f"multichip {name}: sequence {s} {tracked[s]}/{n_pairs} tracked, ATE {ates[s]} m")
+        zero = [k for k in MULTICHIP_KERNELS[name] if launches[k] == 0]
+        if zero:
+            failures.append(f"multichip {name}: kernels never launched: {zero}")
+        if len({round(a, 6) for a in ates}) != MULTICHIP_SEQS:
+            failures.append(f"multichip {name}: the sequences' ATEs are not distinct: {ates}")
+    del il, ir, gt
+    torch.cuda.empty_cache()
+
+    # (c) the dry run, in a process of its own
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "forest_slam_tpu_torch.parallel.dryrun", "1"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    t_dry = time.time() - t0
+    for line in out.stdout.strip().splitlines():
+        print("  " + line, flush=True)
+    log(f"multichip: python -m forest_slam_tpu_torch.parallel.dryrun 1 exited {out.returncode} in {t_dry:.1f} s")
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr, flush=True)
+        failures.append(f"multichip: the dry run exited {out.returncode}")
+    t_all = time.time() - t_phase
+    log(f"multichip phase: {t_all:.1f} s on {torch.cuda.get_device_name(0)} ({smi})")
+    print(json.dumps({"multichip": {"seconds": t_all, "train_step_s": t_step, "steps_per_s": 1 / t_step,
+                                    "update_norm_rel": upd_rel, "agreement": {k: agree[k] for k in (
+                                        "rel", "global_cos", "global_rel", "leaf_min_cos", "sp_min_cos")},
+                                    "batch_eval": record, "dryrun_s": t_dry}}), flush=True)
     return failures
 
 
@@ -2306,6 +2461,10 @@ def main() -> int:
     failures += train_phase(dev, wrappers, launches_by_path, smi)
     torch.cuda.empty_cache()
 
+    # multi-GPU on one card: the sharded train step, batched multi-sequence evaluation, the dry run
+    failures += multichip_phase(dev, wrappers, launches_by_path, smi, fe, orb_cfg)
+    torch.cuda.empty_cache()
+
     # distillation: python -m forest_slam_tpu_torch.train.distill's round-5 recipe at full width
     def track_clip(f):
         out = run_learned(cfg, f)()
@@ -2330,6 +2489,8 @@ def main() -> int:
         print("FAIL: " + "; ".join(failures), file=sys.stderr)
         return 1
 
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     kernels = []
     for r in results:
         by_path = {p: counts[r["name"]] for p, counts in launches_by_path.items()}

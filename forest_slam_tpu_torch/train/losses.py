@@ -8,7 +8,11 @@
 - ``matching_loss``: SuperGlue's negative log-likelihood of the ground-truth
   assignment (dustbins included) under the Sinkhorn couplings.
 
-All take batched, masked fixed-shape inputs. Two of the reference's scatters
+All take batched, masked fixed-shape inputs. Each divides a sum over the
+batch by a count over the batch; ``total`` (default: none) maps a local
+count to the count over the whole global batch, so a data-parallel rank
+that holds a slice of it divides by the global count and the ranks' losses
+sum to the global loss (train/trainer.py:make_sharded_train_step). Two of the reference's scatters
 write one slot several times and keep the last write (XLA applies the
 updates in order): a cell's label when several corners fall in it, and the
 "matched" flag of set-1 slot 0, which every unmatched row writes False into.
@@ -46,19 +50,23 @@ def detector_labels(corners: torch.Tensor, valid: torch.Tensor, height: int, wid
     return labels.reshape(B, Hc, Wc)
 
 
-def _cell_weighted_mean(per_cell: torch.Tensor, corner: torch.Tensor) -> torch.Tensor:
+def _local(count: torch.Tensor) -> torch.Tensor:
+    return count
+
+
+def _cell_weighted_mean(per_cell: torch.Tensor, corner: torch.Tensor, total=_local) -> torch.Tensor:
     """Mean with corner cells weighted 10x (corner cells are rare)."""
     w = torch.where(corner, 10.0, 1.0)
-    return (per_cell * w).sum() / w.sum()
+    return (per_cell * w).sum() / total(w.sum())
 
 
-def detector_loss(logits: torch.Tensor, corners: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def detector_loss(logits: torch.Tensor, corners: torch.Tensor, valid: torch.Tensor, total=_local) -> torch.Tensor:
     """logits (B, Hc, Wc, 65); corners (B, M, 2); valid (B, M)."""
     _, Hc, Wc, _ = logits.shape
     labels = detector_labels(corners, valid, Hc * 8, Wc * 8)
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[..., None])[..., 0]
-    return _cell_weighted_mean(nll, labels != 64)
+    return _cell_weighted_mean(nll, labels != 64, total)
 
 
 def detector_labels_soft(corners: torch.Tensor, valid: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -87,17 +95,18 @@ def detector_labels_soft(corners: torch.Tensor, valid: torch.Tensor, height: int
     return t / torch.clamp(t.sum(-1, keepdim=True), min=1e-12)
 
 
-def detector_loss_soft(logits: torch.Tensor, corners: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def detector_loss_soft(logits: torch.Tensor, corners: torch.Tensor, valid: torch.Tensor,
+                       total=_local) -> torch.Tensor:
     """Soft cross-entropy against :func:`detector_labels_soft`; corner cells
     weighted 10x."""
     _, Hc, Wc, _ = logits.shape
     targets = detector_labels_soft(corners, valid, Hc * 8, Wc * 8)
     ce = -(targets * F.log_softmax(logits, dim=-1)).sum(-1)
-    return _cell_weighted_mean(ce, targets[..., :64].sum(-1) > 1e-6)
+    return _cell_weighted_mean(ce, targets[..., :64].sum(-1) > 1e-6, total)
 
 
 def descriptor_nce_loss(desc0: torch.Tensor, desc1: torch.Tensor, valid: torch.Tensor,
-                        temperature: float = 0.07) -> torch.Tensor:
+                        temperature: float = 0.07, total=_local) -> torch.Tensor:
     """Symmetric InfoNCE: desc0/desc1 (B, M, D) L2-normalised descriptors at
     corresponding points; valid (B, M)."""
     sim = torch.einsum("bmd,bnd->bmn", desc0, desc1) / temperature
@@ -106,12 +115,12 @@ def descriptor_nce_loss(desc0: torch.Tensor, desc1: torch.Tensor, valid: torch.T
     diag01 = torch.diagonal(F.log_softmax(sim, dim=2), dim1=1, dim2=2)
     diag10 = torch.diagonal(F.log_softmax(sim, dim=1), dim1=1, dim2=2)
     per = -(diag01 + diag10) * 0.5
-    denom = torch.clamp(valid.sum(), min=1)
+    denom = torch.clamp(total(valid.sum()), min=1)
     return torch.where(valid, per, torch.zeros_like(per)).sum() / denom
 
 
 def matching_loss(log_p: torch.Tensor, gt_matches0: torch.Tensor, valid0: torch.Tensor,
-                  valid1: torch.Tensor) -> torch.Tensor:
+                  valid1: torch.Tensor, total=_local) -> torch.Tensor:
     """NLL of the ground-truth assignment under Sinkhorn log-couplings
     (B, K0+1, K1+1); gt_matches0 (B, K0) indexes set 1, or -1 for the
     dustbin. Set-1 keypoints no row matches are charged to the dustbin row.
@@ -124,12 +133,12 @@ def matching_loss(log_p: torch.Tensor, gt_matches0: torch.Tensor, valid0: torch.
     tgt = torch.where(has, gt_matches0, torch.full_like(gt_matches0, K1)).long()
     row_nll = -log_p[:, :K0, :].gather(2, tgt[..., None])[..., 0]
     row_nll = torch.where(valid0, row_nll, torch.zeros_like(row_nll))
-    n_row = torch.clamp(valid0.sum(), min=1)
+    n_row = torch.clamp(total(valid0.sum()), min=1)
     idx = torch.where(has, gt_matches0, torch.zeros_like(gt_matches0))
     last = last_writer(idx, K1)
     matched1 = (last >= 0) & has.gather(1, last.clamp(min=0))
     unmatched1 = valid1 & ~matched1
     col_nll = -log_p[:, K0, :K1]
     col_nll = torch.where(unmatched1, col_nll, torch.zeros_like(col_nll))
-    n_col = torch.clamp(unmatched1.sum(), min=1)
+    n_col = torch.clamp(total(unmatched1.sum()), min=1)
     return row_nll.sum() / n_row + col_nll.sum() / n_col

@@ -1,5 +1,5 @@
 """Training loop for the learned front end, SuperPoint and SuperGlue jointly
-(port of train/trainer.py, without the sharded step).
+(port of train/trainer.py).
 
 One :func:`train_step` computes the detector cell cross-entropy on both
 images of a pair, the descriptor InfoNCE at ground-truth correspondences,
@@ -8,17 +8,21 @@ term), then an AdamW update of every float32 parameter. :func:`train` draws
 each batch on the device from one ``torch.Generator`` and runs the steps in
 a Python loop (the reference scans them on the device), reading the
 metrics back to the host only every ``log_every`` steps. It runs on the
-card unless given ``device="cpu"``.
+card unless given ``device="cpu"``. :func:`make_sharded_train_step` is the
+same step over a ('data', 'model') mesh of ranks (parallel/mesh.py).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import sys
 import time
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from forest_slam_tpu_torch.core.camera import remap_bilinear
 from forest_slam_tpu_torch.frontend.learned import LearnedFrontend, LearnedFrontendConfig
@@ -199,24 +203,28 @@ def checkpoint_meta(cfg: TrainConfig) -> dict:
     return meta
 
 
-def loss_fn(fe: LearnedFrontend, batch: TrainingBatch, cfg: TrainConfig):
-    """(total loss, metrics) of one batch, as the reference's loss_fn."""
+def loss_fn(fe: LearnedFrontend, batch: TrainingBatch, cfg: TrainConfig, global_count=None):
+    """(total loss, metrics) of one batch, as the reference's loss_fn. With
+    ``global_count`` (a local count -> the global batch's), ``batch`` is one
+    data-parallel rank's slice and every term its share of the global term."""
+    kw = {} if global_count is None else {"total": global_count}
     B, M = batch.valid0.shape
     images = torch.cat([batch.image0, batch.image1]) / 255.0
     raw = fe.superpoint(images)
     det_fn = detector_loss_soft if cfg.detector_soft else detector_loss
     l_det = det_fn(raw.det_logits, torch.cat([batch.corners0, batch.corners1]),
-                   torch.cat([batch.valid0, batch.valid1]))
+                   torch.cat([batch.valid0, batch.valid1]), **kw)
     # descriptors at the ground-truth correspondences (differentiable sampling)
     desc0 = _sample_coarse_descriptors(raw.coarse_desc[:B], batch.corners0)
     desc1 = _sample_coarse_descriptors(raw.coarse_desc[B:], batch.corners1)
     matchable = batch.valid0 & batch.valid1
-    l_desc = descriptor_nce_loss(desc0, desc1, matchable)
+    l_desc = descriptor_nce_loss(desc0, desc1, matchable, **kw)
     score = torch.ones_like(batch.valid0, dtype=torch.float32)
     log_p = fe.superglue(batch.corners0, score, desc0, batch.valid0, batch.corners1, score, desc1, batch.valid1,
                          (cfg.height, cfg.width), return_couplings=True)
     idx = torch.arange(M, device=matchable.device).expand(B, M)
-    l_match = matching_loss(log_p, torch.where(matchable, idx, torch.full_like(idx, -1)), batch.valid0, batch.valid1)
+    l_match = matching_loss(log_p, torch.where(matchable, idx, torch.full_like(idx, -1)), batch.valid0, batch.valid1,
+                            **kw)
     metrics = {"detector": l_det, "descriptor": l_desc, "matching": l_match}
     total = cfg.w_detector * l_det + cfg.w_descriptor * l_desc + cfg.w_matching * l_match
     if cfg.w_zoom > 0:
@@ -232,7 +240,8 @@ def loss_fn(fe: LearnedFrontend, batch: TrainingBatch, cfg: TrainConfig):
         raw_z = fe.superpoint(remap_bilinear(batch.image0 / 255.0, src))
         cz = (batch.corners0 - ctr) * s + ctr
         in_z = (cz[..., 0] >= 4) & (cz[..., 0] < W - 4) & (cz[..., 1] >= 4) & (cz[..., 1] < H - 4)
-        l_zoom = descriptor_nce_loss(desc0, _sample_coarse_descriptors(raw_z.coarse_desc, cz), batch.valid0 & in_z)
+        l_zoom = descriptor_nce_loss(desc0, _sample_coarse_descriptors(raw_z.coarse_desc, cz), batch.valid0 & in_z,
+                                     **kw)
         metrics["zoom"] = l_zoom
         total = total + cfg.w_zoom * l_zoom
     metrics["loss"] = total
@@ -252,6 +261,188 @@ def train_step(state: TrainState, batch: TrainingBatch, cfg: TrainConfig):
             p.grad = torch.zeros_like(p)
     opt.step()
     return state._replace(step=state.step + 1), {k: v.detach() for k, v in metrics.items()}
+
+
+class ShardedTrainState(NamedTuple):
+    """A TrainState spread over a mesh (train/trainer.py:299-329). Each
+    tensor-shardable kernel lives as this rank's ``1/model`` slice in
+    ``shards`` (float32 masters), and ``optimizer`` (AdamW over the shards
+    and the replicated parameters) holds its moments as slices too;
+    ``frontend`` holds the replicated parameters whole and the sharded
+    kernels empty between steps (a step gathers them, then frees them)."""
+
+    frontend: LearnedFrontend
+    optimizer: torch.optim.Optimizer
+    step: int
+    shards: dict  # parameter name -> nn.Parameter, this rank's slice
+    placements: dict  # parameter name -> Replicate() or Shard(dim) (parallel.param_shardings)
+    mesh: Any
+
+
+class ShardedTrainStep:
+    """:func:`train_step` over a mesh. Called on every rank with the same
+    state and global batch, it takes the rank's slice of the batch on
+    'data', gathers the sharded kernels over 'model' (the bf16 working
+    copies are built from them afresh under autograd), divides each loss
+    term's local sum by its count over the whole batch, and reduces the
+    gradients: a sharded kernel's by a reduce-scatter over 'model' (each
+    model rank computed the same gradient, so the sum is divided by
+    ``model``) and a sum over 'data'; a replicated parameter's by a sum
+    over all ranks divided by ``model``. Then AdamW updates the shards and
+    the replicated parameters; the metrics are the global batch's."""
+
+    def __init__(self, mesh, cfg: TrainConfig):
+        self.mesh, self.cfg = mesh, cfg
+        self.data, self.model = mesh.size(0), mesh.size(1)
+        self.data_rank = mesh.get_local_rank("data")
+        self.data_group, self.model_group = mesh.get_group("data"), mesh.get_group("model")
+
+    def _global_count(self, count: torch.Tensor) -> torch.Tensor:
+        count = count.clone()
+        dist.all_reduce(count, group=self.data_group)
+        return count
+
+    def local_batch(self, batch: TrainingBatch, device) -> TrainingBatch:
+        B = batch.valid0.shape[0]
+        if B % self.data:
+            raise ValueError(f"batch of {B} not divisible by the data axis {self.data}")
+        b = B // self.data
+        return TrainingBatch(*(t[self.data_rank * b:(self.data_rank + 1) * b].to(device) for t in batch))
+
+    def gather(self, st: ShardedTrainState) -> None:
+        """Each sharded kernel of ``st.frontend`` whole, from the shards of
+        its model peers (one all-gather for all of them)."""
+        if not st.shards:
+            return
+        params = dict(st.frontend.named_parameters())
+        local = torch.cat([sh.detach().reshape(-1) for sh in st.shards.values()])
+        out = local.new_empty(self.model * local.numel())
+        dist.all_gather_into_tensor(out, local, group=self.model_group)
+        out = out.view(self.model, -1)
+        off = 0
+        for name, sh in st.shards.items():
+            k = sh.numel()
+            params[name].data = torch.cat([out[r, off:off + k].view(sh.shape) for r in range(self.model)],
+                                          dim=st.placements[name].dim)
+            off += k
+
+    def release(self, st: ShardedTrainState) -> None:
+        params = dict(st.frontend.named_parameters())
+        for name in st.shards:
+            params[name].data = params[name].data.new_empty(0)
+            params[name].grad = None
+
+    def _reduce_gradients(self, st: ShardedTrainState) -> None:
+        params = dict(st.frontend.named_parameters())
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        rep = [p for name, p in params.items() if name not in st.shards]
+        flat = torch.cat([p.grad.reshape(-1) for p in rep])
+        dist.all_reduce(flat)  # every rank: the data ranks' sum, model times over
+        flat /= self.model
+        off = 0
+        for p in rep:
+            p.grad.copy_(flat[off:off + p.numel()].view(p.shape))
+            off += p.numel()
+        if not st.shards:
+            return
+        send = torch.cat([params[name].grad.chunk(self.model, st.placements[name].dim)[r].reshape(-1)
+                          for r in range(self.model) for name in st.shards])
+        recv = send.new_empty(send.numel() // self.model)
+        dist.reduce_scatter_tensor(recv, send, group=self.model_group)
+        dist.all_reduce(recv, group=self.data_group)
+        recv /= self.model
+        off = 0
+        for sh in st.shards.values():
+            sh.grad = recv[off:off + sh.numel()].view(sh.shape).clone()
+            off += sh.numel()
+
+    def backward(self, st: ShardedTrainState, batch: TrainingBatch, of=None) -> dict:
+        """The global batch's metrics; the reduced gradients of the total
+        loss (or of ``of(metrics)``) left on the shards and the replicated
+        parameters."""
+        fe = st.frontend
+        dev = next(p.device for p in fe.parameters())
+        local = self.local_batch(batch, dev)
+        self.gather(st)
+        fe.zero_grad(set_to_none=True)
+        try:
+            total, metrics = loss_fn(fe, local, self.cfg, global_count=self._global_count)
+            (total if of is None else of(metrics)).backward()
+            self._reduce_gradients(st)
+        finally:
+            self.release(st)
+        keys = list(metrics)
+        vals = torch.stack([metrics[k].detach().float() for k in keys])
+        dist.all_reduce(vals, group=self.data_group)
+        return dict(zip(keys, vals.unbind()))
+
+    def gradients(self, st: ShardedTrainState, batch: TrainingBatch, of=None) -> tuple[dict, dict]:
+        """(metrics, whole gradients by parameter name) of one step, without
+        the update: the gradients the step would apply."""
+        metrics = self.backward(st, batch, of)
+        grads = {name: p.grad for name, p in st.frontend.named_parameters() if name not in st.shards}
+        grads.update(self.gather_tensors(st, {name: sh.grad for name, sh in st.shards.items()}))
+        return metrics, grads
+
+    def gather_tensors(self, st: ShardedTrainState, slices: dict) -> dict:
+        """Whole tensors from each rank's slices (keyed as ``st.shards``)."""
+        out = {}
+        for name, sl in slices.items():
+            buf = sl.new_empty(self.model * sl.numel())
+            dist.all_gather_into_tensor(buf, sl.contiguous().reshape(-1), group=self.model_group)
+            out[name] = torch.cat(list(buf.view(self.model, *sl.shape).unbind()), dim=st.placements[name].dim)
+        return out
+
+    def parameters(self, st: ShardedTrainState) -> dict:
+        """Every parameter whole, by name (the sharded ones gathered)."""
+        full = {name: p.detach() for name, p in st.frontend.named_parameters() if name not in st.shards}
+        full.update(self.gather_tensors(st, {name: sh.detach() for name, sh in st.shards.items()}))
+        return full
+
+    def __call__(self, st: ShardedTrainState, batch: TrainingBatch):
+        metrics = self.backward(st, batch)
+        st.optimizer.step()
+        return st._replace(step=st.step + 1), metrics
+
+
+def make_sharded_train_step(mesh, state: TrainState, cfg: TrainConfig):
+    """(step, sharded_state): :func:`train_step` with explicit data/tensor
+    parallelism on ``mesh`` (train/trainer.py:299-329). ``state`` (whole,
+    on this rank's device, left as it is) is split by
+    ``parallel.param_shardings``: each shardable kernel and its AdamW
+    moments keep this rank's ``1/model`` slice, the rest is replicated, and
+    the step count is replicated. ``step(sharded_state, batch)`` takes the
+    global batch, split on its leading axis over 'data'."""
+    from torch.distributed.tensor import Shard
+
+    from forest_slam_tpu_torch.parallel.mesh import param_shardings
+
+    placements = param_shardings(state.frontend, mesh)
+    model, m = mesh.size(1), mesh.get_local_rank("model")
+    src = dict(state.frontend.named_parameters())
+    fe = copy.deepcopy(state.frontend)
+    shards, masters, carried = {}, [], []
+    for name, p in fe.named_parameters():
+        old = state.optimizer.state.get(src[name], {})
+        if isinstance(placements[name], Shard):
+            dim = placements[name].dim
+            master = nn.Parameter(p.detach().chunk(model, dim)[m].clone())
+            shards[name] = master
+            carried.append({k: v.clone() if k == "step" else v.chunk(model, dim)[m].clone() for k, v in old.items()})
+            p.data = p.data.new_empty(0)
+        else:
+            master = p
+            carried.append({k: v.clone() for k, v in old.items()})
+        masters.append(master)
+    opt = make_optimizer(masters, cfg)
+    for master, st in zip(masters, carried):
+        if st:
+            opt.state[master] = st
+    sharded = ShardedTrainState(frontend=fe, optimizer=opt, step=state.step, shards=shards, placements=placements,
+                                mesh=mesh)
+    return ShardedTrainStep(mesh, cfg), sharded
 
 
 class BlurDraws(NamedTuple):

@@ -74,14 +74,23 @@ def torch_batch(batch):
     return TrainingBatch(*(torch.as_tensor(np.array(a)) for a in batch))
 
 
-def _jax_metrics_and_grads(tree, batch, cfg):
-    """Metrics, the gradient of the total and that of detector + descriptor."""
+def _jax_metrics_and_grads(tree, batch, cfg, mesh=None):
+    """Metrics, the gradient of the total and that of detector + descriptor;
+    on ``mesh``, with the parameters and the batch sharded as
+    make_sharded_train_step shards them (tests/test_training.py)."""
     def run(p, b):
         metrics, pull = jax.vjp(lambda q: JT.loss_fn(q, b, cfg)[1], p)
         one = lambda names: pull({k: jnp.float32(k in names) for k in metrics})[0]
         return metrics, one(("loss",)), one(("detector", "descriptor"))
 
-    m, g_all, g_sp = jax.jit(run)(jax.tree.map(jnp.asarray, tree), JT.TrainingBatch(*map(jnp.asarray, batch)))
+    params, jbatch = jax.tree.map(jnp.asarray, tree), JT.TrainingBatch(*map(jnp.asarray, batch))
+    if mesh is None:
+        fn = jax.jit(run)
+    else:
+        from forest_slam_tpu.parallel.mesh import batch_shardings, param_shardings
+
+        fn = jax.jit(run, in_shardings=(param_shardings(params, mesh), batch_shardings(jbatch, mesh)))
+    m, g_all, g_sp = fn(params, jbatch)
     return {k: float(v) for k, v in m.items()}, jax.tree.map(np.asarray, g_all), jax.tree.map(np.asarray, g_sp)
 
 
@@ -93,12 +102,18 @@ def _port_metrics_and_grads(tree, batch, cfg):
     g_sp = torch.autograd.grad(m["detector"] + m["descriptor"], params, allow_unused=True)
 
     def tree_of(grads):
-        g = copy.deepcopy(fe)
-        for p, d in zip(g.parameters(), grads):
-            p.data = torch.zeros_like(p) if d is None else d.detach().clone()
-        return params_to_jax(g)
+        return grads_to_jax(fe, {n: torch.zeros_like(p) if d is None else d for (n, p), d in
+                                 zip(fe.named_parameters(), grads)})
 
     return {k: float(v.detach()) for k, v in m.items()}, tree_of(g_all), tree_of(g_sp)
+
+
+def grads_to_jax(fe, grads: dict) -> dict:
+    """Gradients by the port's parameter names -> the JAX parameter tree."""
+    g = copy.deepcopy(fe)
+    for name, p in g.named_parameters():
+        p.data = torch.as_tensor(grads[name]).detach().float().clone()
+    return params_to_jax(g)
 
 
 def _flat(tree):
@@ -111,8 +126,14 @@ def _cos(a, b):
 
 
 def assert_step_matches(tree, batch, jax_cfg, torch_cfg):
-    jm, jg_all, jg_sp = _jax_metrics_and_grads(tree, batch, jax_cfg)
-    tm, tg_all, tg_sp = _port_metrics_and_grads(tree, batch, torch_cfg)
+    return assert_within_envelope(_jax_metrics_and_grads(tree, batch, jax_cfg),
+                                  _port_metrics_and_grads(tree, batch, torch_cfg))
+
+
+def assert_within_envelope(jax_step, port_step):
+    """Hold one step's (metrics, gradient of the total, gradient of detector
+    + descriptor) of the port to JAX's, within the envelope above."""
+    (jm, jg_all, jg_sp), (tm, tg_all, tg_sp) = jax_step, port_step
     assert set(jm) == set(tm)
     np.testing.assert_allclose(tm["detector"], jm["detector"], rtol=1e-4)
     np.testing.assert_allclose(tm["descriptor"], jm["descriptor"], rtol=1e-3)

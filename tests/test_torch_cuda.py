@@ -26,7 +26,11 @@ loader (``-k bag``): frames undistorted onto the card within 1e-3 grey
 levels of the CPU's. The bench's routes (``-k "flash or pallas_equals"``):
 ``--sg-attention flash`` (``scaled_dot_product_attention``) against the
 dense path and the plain version, and ``--refine-cost-path pallas`` equal to
-``xla``.
+``xla``. Multi-GPU on one card (``-k multichip``): a one-rank NCCL mesh's
+sharded train step against ``train_step`` within
+chip_smoke.TRAIN_AGREEMENT and tests/test_training.py's 5% on the update
+norm, and ``run_batched_eval`` equal to ``run_stereo_vo_device`` on each
+sequence bit for bit.
 """
 
 import pytest
@@ -1076,3 +1080,72 @@ def test_refine_cost_path_pallas_equals_xla(cuda):
                 for p in ("pallas", "xla"))
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+def test_multichip_sharded_step_matches_train_step(cuda):
+    """make_sharded_train_step on make_mesh(1) (one NCCL rank) at the
+    full-width recipe, 4 pairs: loss terms and gradients against the
+    unsharded step within chip_smoke.TRAIN_AGREEMENT, the update's norm
+    within 5%, attention launched 18 times by the step and nothing else."""
+
+    from forest_slam_tpu_torch.parallel import make_mesh
+    from forest_slam_tpu_torch.train.data import make_corridor_pool, make_training_batch
+    from forest_slam_tpu_torch.train.trainer import create_train_state, make_sharded_train_step, train_step
+
+    dev, g = cuda
+    cs = _chip_smoke()
+    cfg = cs.train_config()._replace(batch_size=4)
+    mesh = make_mesh(1, "cuda")
+    state = create_train_state(cfg, seed=0, device=dev)
+    pool = make_corridor_pool(g, 4, cfg.height, cfg.width, cfg.max_corners, chunk=4, device=dev)
+    batch = make_training_batch(g, 4, cfg.height, cfg.width, cfg.max_corners, 0.4, 0.3, pool, dev)
+    ref = cs.step_gradients(state.frontend, batch, cfg)
+    step, sharded = make_sharded_train_step(mesh, state, cfg)
+    host = lambda grads: {n: v.detach().double().cpu().numpy().ravel() for n, v in grads.items()}
+    _, g_sp = step.gradients(sharded, batch, of=lambda m: m["detector"] + m["descriptor"])
+    metrics, g_all = step.gradients(sharded, batch)
+    agree = cs.step_agreement(ref, ({k: float(v) for k, v in metrics.items()}, host(g_all), host(g_sp)))
+    assert agree["ok"], agree
+    start = {n: p.detach().clone() for n, p in state.frontend.named_parameters()}
+    counts = [w.launches for w in (attention_forward, gnn_layer, sinkhorn_decode, nms_block_max, detect_pooled,
+                                   sparse_cost_rows, refine_cost_volume)]
+    sharded, _ = step(sharded, batch)
+    torch.cuda.synchronize()
+    assert [w.launches - c for w, c in zip((attention_forward, gnn_layer, sinkhorn_decode, nms_block_max,
+                                            detect_pooled, sparse_cost_rows, refine_cost_volume),
+                                           counts)] == [18, 0, 0, 0, 0, 0, 0]
+    state, _ = train_step(state, batch, cfg)
+    norm = lambda new: float(sum(float(((new[n] - start[n]).double() ** 2).sum()) for n in start) ** 0.5)
+    n_ref = norm({n: p.detach() for n, p in state.frontend.named_parameters()})
+    assert n_ref > 0 and abs(norm(step.parameters(sharded)) - n_ref) <= 5e-2 * n_ref
+    assert sharded.step == 1 and len(sharded.shards) == 0  # model = 1: nothing sharded
+
+
+def test_multichip_batched_eval_equals_each_sequence(cuda):
+    """run_batched_eval on make_mesh(1) over 2 distinct 224x160 sequences,
+    ORB: each sequence's poses and ok flags equal run_stereo_vo_device's on
+    it alone with its generator seeded from (seed, s), bit for bit."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.frontend.base import orb_frontend
+    from forest_slam_tpu_torch.io.synthetic import render_sequence
+    from forest_slam_tpu_torch.parallel import make_mesh
+    from forest_slam_tpu_torch.pipelines.batch_eval import run_batched_eval, sequence_seed
+    from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo_device
+
+    dev, _ = cuda
+    seqs = [render_sequence(8, height=160, width=224, seed=s, speed=0.10 + 0.03 * s, device=dev) for s in range(2)]
+    il = torch.stack([q.images_left for q in seqs])
+    ir = torch.stack([q.images_right for q in seqs])
+    gt = torch.stack([q.T_world_cam for q in seqs])
+    cfg = StereoConfig(orb=OrbConfig(n_features=256, n_levels=3), n_hypotheses=128, compose_mode="odometry")
+    results, poses, ok = run_batched_eval(il, ir, gt, seqs[0].rig, cfg, make_mesh(1, "cuda"), frame_batch=4,
+                                          pair_batch=4, with_ok=True)
+    assert ok.mean() > 0.9 and len({round(r.ate_rmse, 6) for r in results}) == 2
+    for s in range(2):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(sequence_seed(0, s))
+        alone = run_stereo_vo_device(il[s], ir[s], seqs[0].rig, cfg, gen, orb_frontend(cfg.orb, cfg.max_match_distance),
+                                     frame_batch=4, pair_batch=4)
+        assert np.array_equal(poses[s], alone.pose.double().cpu().numpy())
+        assert np.array_equal(ok[s], alone.ok.cpu().numpy())

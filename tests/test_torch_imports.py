@@ -49,7 +49,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 62
+    assert n_modules >= 67
     names = out.stdout.splitlines()[1].split()
     for mod in ("frontend.select_kernel", "frontend.attention_kernel", "frontend.learned", "frontend.superglue",
                 "frontend.params", "train", "train.losses", "train.data", "train.trainer", "train.__main__",
@@ -58,7 +58,8 @@ def test_port_imports_no_jax():
                 "backend", "backend.mapping", "backend.pose_graph", "backend.ba", "backend.window",
                 "backend.loop_closure", "backend.relocalize", "io.ply", "pipelines.slam", "io.lz4f", "io.rosbag",
                 "io.calib", "io.dataset", "native", "eval.association", "eval.groundtruth", "eval.viewer",
-                "eval.plots", "utils.roofline", "bench"):
+                "eval.plots", "utils.roofline", "bench", "parallel", "parallel.mesh", "parallel.launch",
+                "parallel.dryrun", "pipelines.batch_eval"):
         assert "forest_slam_tpu_torch." + mod in names
 
 
