@@ -1,0 +1,61 @@
+"""Finds a cell's files by the names in ``BENCHMARK.json``: the
+configuration file it names, ``traffic/<traffic>.json``,
+``limits/<workload>.json`` and ``metrics/<metric>.py`` under this
+directory."""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import re
+from typing import NamedTuple
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+
+class Cell(NamedTuple):
+    name: str
+    workload: dict
+    config: dict  # the configuration file's contents
+    traffic: dict  # the traffic file's contents
+    limits: dict  # number -> limit of the output check
+    end_to_end: list  # the manifest's end-to-end entries this cell reports
+    per_layer: list  # the manifest's per-layer entries this cell reports
+    root: str
+
+
+def _json(path: str):
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _reports(metric: dict, cell: str) -> bool:
+    return "workloads" not in metric or cell in metric["workloads"]
+
+
+def load_cell(name: str, root: str = ROOT) -> Cell:
+    """The cell ``name`` of ``root``'s manifest with its files."""
+    man = _json(os.path.join(root, "BENCHMARK.json"))
+    work = {w["name"]: w for w in man["workloads"]}
+    if name not in work:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json (have {sorted(work)})")
+    w = work[name]
+    conf = {c["name"]: c for c in man["configs"]}[w["config"]]
+    pkg = os.path.join(root, os.path.basename(HERE))
+    e2e = [m for m in man["end_to_end"] if _reports(m, name)]
+    moved = {m["name"] for m in e2e}
+    per = [m for m in man["per_layer"] if _reports(m, name) and m["moves"] in moved]
+    return Cell(name=name, workload=w, config=_json(os.path.join(root, conf["file"])),
+                traffic=_json(os.path.join(pkg, "traffic", w["traffic"] + ".json")),
+                limits=_json(os.path.join(pkg, "limits", name + ".json")), end_to_end=e2e, per_layer=per, root=root)
+
+
+def reader(metric: str, root: str = ROOT):
+    """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
+    path = os.path.join(root, os.path.basename(HERE), "metrics", metric + ".py")
+    spec = importlib.util.spec_from_file_location("bench_port_metric_" + re.sub(r"\W", "_", metric), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
