@@ -1323,24 +1323,25 @@ def slam_phase(dev, wrappers, launches_by_path, smi, fe, clip, workload):
                        pairs_per_s=(n - 1) / t_run, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                        loops=int(out.n_loops.item()), loop_pairs=out.loop_pairs[out.loop_accepted].tolist(),
                        keyframes=len(range(0, n, SLAM_KF_STRIDE)), launches=launches)
-    # the stages of SLAM with BA, the card synchronised around each
+    # the stages of SLAM with BA: the host milliseconds of their spans
     from forest_slam_tpu_torch.pipelines.slam import run_stereo_slam
-
-    timings = {}
+    from forest_slam_tpu_torch.utils import trace
 
     def staged():
         g = torch.Generator(device=dev)
         g.manual_seed(0)
-        return run_stereo_slam(il, ir, rig, slam_cfg._replace(ba=WindowBAConfig()), g, learned, timings=timings,
-                               **batches)
+        return run_stereo_slam(il, ir, rig, slam_cfg._replace(ba=WindowBAConfig()), g, learned, **batches)
 
     torch.cuda.reset_peak_memory_stats()
-    out, launches, t_run = drive_path(wrappers, staged)
+    with trace.recording() as stages:
+        out, launches, t_run = drive_path(wrappers, staged)
+    stage_ms = {k.removeprefix("fs.slam."): r["host_ms"] for k, r in stages.summary().items()
+                if k.startswith("fs.slam.")}
     launched("workload_slam_ba", launches, learned_kernels)
     err, _ = bench.trajectory_errors(out.pose, wl.truth)
     rec["slam_ba"] = dict(tracked=int(out.vo.ok.sum().item()), ate_m=err.rmse, seconds=t_run,
                           pairs_per_s=(n - 1) / t_run, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                          loops=int(out.n_loops.item()), stage_ms={k: 1e3 * v for k, v in timings.items()},
+                          loops=int(out.n_loops.item()), stage_ms=stage_ms,
                           launches=launches)
     records["workload"] = rec
     for name, r in rec.items():
@@ -2142,11 +2143,13 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     from forest_slam_tpu_torch import _build
+    from forest_slam_tpu_torch.utils import trace
 
-    t0 = time.time()
-    path = _build.build()
-    log(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s (cached={_build.last_build['cached']})")
-    for line in _build.last_build["log"].splitlines():
+    with trace.recording() as setup:
+        path = _build.build()
+    lib = setup.find("fs.setup.kernel_library")[0]
+    log(f"build: {os.path.relpath(path, ROOT)} in {lib.host_ms / 1e3:.1f} s (cached={not lib.attrs['built']})")
+    for line in _build.last_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas: " + line.strip(), flush=True)
 

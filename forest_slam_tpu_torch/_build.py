@@ -24,6 +24,8 @@ import subprocess
 import threading
 import time
 
+from forest_slam_tpu_torch.utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -36,8 +38,10 @@ BUILD_TIMEOUT_S = 600
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _functions: dict[str, ctypes._CFuncPtr] = {}
-# what the last build did, for callers that report it
-last_build = {"seconds": None, "cached": None, "log": ""}
+# nvcc's output of the last build (its -Xptxas -v report), for callers that
+# print it; the build's seconds and whether it compiled are the
+# fs.setup.kernel_library span's (utils/trace.py)
+last_log = ""
 
 P = ctypes.c_void_p  # device pointers and the stream
 I = ctypes.c_int
@@ -72,16 +76,23 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless the library for these sources exists."""
-    path = library_path()
-    if os.path.exists(path):
-        last_build.update(seconds=0.0, cached=True, log="")
-        return path
+    """Compile the kernels unless the library for these sources exists, in
+    the one-shot span ``fs.setup.kernel_library`` (``built``: whether nvcc
+    ran)."""
+    with trace.setup_span("fs.setup.kernel_library", built=False) as sp:
+        path = library_path()
+        if not os.path.exists(path):
+            _compile(path)
+            sp.attrs["built"] = True
+    return path
+
+
+def _compile(path: str) -> None:
+    global last_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     obj_dir = f"{tmp}.objs"
     os.makedirs(obj_dir)
-    t0 = time.time()
     try:
         objs = [os.path.join(obj_dir, os.path.basename(src) + ".o") for src in sources()]
         log = _run_all([[nvcc_path(), *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(sources(), objs)])
@@ -90,8 +101,7 @@ def build() -> str:
     finally:
         _remove(tmp)
         shutil.rmtree(obj_dir, ignore_errors=True)
-    last_build.update(seconds=time.time() - t0, cached=False, log=log)
-    return path
+    last_log = log
 
 
 def _run_all(cmds: list[list[str]]) -> str:

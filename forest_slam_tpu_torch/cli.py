@@ -76,6 +76,9 @@ def _add_common(p: argparse.ArgumentParser, stereo: bool = False) -> None:
                             "extraction at octaves 1.0, 0.707, 0.5")
         p.add_argument("--rectify", action="store_true",
                        help="bag input: stereo-rectify instead of the reference's unrectified behaviour")
+        p.add_argument("--trace-out", default=None, metavar="JSON",
+                       help="run under a device recording and write its spans (the port's layers, set-up and "
+                            "SLAM stages) and the card's kernels as one Chrome trace, which Perfetto opens")
 
 
 def _device(args):
@@ -479,7 +482,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    if getattr(args, "trace_out", None) is None:
+        return args.fn(args)
+    from forest_slam_tpu_torch.utils import trace
+
+    with trace.recording(device=True) as tr:
+        rc = args.fn(args)
+    tr.write_chrome_trace(args.trace_out)
+    print(f"trace: {len(tr.spans)} spans, {len(tr.device_events)} device events -> {args.trace_out}")
+    return rc
 
 
 if __name__ == "__main__":

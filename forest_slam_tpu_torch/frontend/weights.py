@@ -22,6 +22,7 @@ from forest_slam_tpu_torch.frontend import _msgpack
 from forest_slam_tpu_torch.frontend.learned import LearnedFrontend, LearnedFrontendConfig
 from forest_slam_tpu_torch.frontend.superglue import SuperGlue, SuperGlueConfig
 from forest_slam_tpu_torch.frontend.superpoint import _CONVS, SuperPointConfig, SuperPointNet
+from forest_slam_tpu_torch.utils import trace
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights")
 # the flagship inference checkpoint (stem-4, 9 GNN layers, 20 Sinkhorn iterations)
@@ -155,20 +156,25 @@ def load_learned_frontend(path: str = FLAGSHIP_PATH, image_shape=(600, 960), max
     weights onto ``device``. ``superglue_overrides`` take SuperGlueConfig
     fields (gnn_impl, attention_impl, softmax_dtype, ...; a smaller
     gnn_layers loads the first layer pairs); ``scales`` are the extraction
-    octaves."""
-    meta, tree = read_checkpoint(path)
-    stride = int(meta.get("stem_stride", 1))
-    H, W = image_shape
-    if H % 8 or W % 8:
-        raise ValueError(f"image shape {image_shape} must be a multiple of 8")
-    sp = SuperPointConfig(
-        stem_stride=stride, max_keypoints=max_keypoints,
-        subpixel=str(meta.get("subpixel", "none")), **(superpoint_overrides or {}),
-    )
-    sg = SuperGlueConfig(**{
-        "gnn_layers": int(meta.get("gnn_layers", 9)),
-        "sinkhorn_iterations": int(meta.get("sinkhorn_iterations", 20)),
-        **(superglue_overrides or {}),
-    })
-    fe = params_from_jax(tree, LearnedFrontendConfig(superpoint=sp, superglue=sg, scales=tuple(scales)))
-    return fe.to(device)
+    octaves. Loads in the one-shot span ``fs.setup.checkpoint`` (children
+    ``.read``, ``.convert``, ``.to_device``; utils/trace.py)."""
+    with trace.setup_span("fs.setup.checkpoint"):
+        with trace.span("fs.setup.checkpoint.read"):
+            meta, tree = read_checkpoint(path)
+        stride = int(meta.get("stem_stride", 1))
+        H, W = image_shape
+        if H % 8 or W % 8:
+            raise ValueError(f"image shape {image_shape} must be a multiple of 8")
+        sp = SuperPointConfig(
+            stem_stride=stride, max_keypoints=max_keypoints,
+            subpixel=str(meta.get("subpixel", "none")), **(superpoint_overrides or {}),
+        )
+        sg = SuperGlueConfig(**{
+            "gnn_layers": int(meta.get("gnn_layers", 9)),
+            "sinkhorn_iterations": int(meta.get("sinkhorn_iterations", 20)),
+            **(superglue_overrides or {}),
+        })
+        with trace.span("fs.setup.checkpoint.convert"):
+            fe = params_from_jax(tree, LearnedFrontendConfig(superpoint=sp, superglue=sg, scales=tuple(scales)))
+        with trace.span("fs.setup.checkpoint.to_device"):
+            return fe.to(device)

@@ -17,7 +17,6 @@ seed (VO, relocalization, loop verification), or are handed in.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +36,7 @@ from forest_slam_tpu_torch.core.lie import mm, se3_inverse
 from forest_slam_tpu_torch.frontend.base import FrontendFns, orb_frontend
 from forest_slam_tpu_torch.io.tum import Trajectory
 from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, StereoStepOut, _map, _on_device, run_stereo_vo_device
+from forest_slam_tpu_torch.utils import trace
 
 
 class SlamConfig(NamedTuple):
@@ -76,81 +76,61 @@ class SlamDraws(NamedTuple):
 @torch.no_grad()
 def run_stereo_slam(images_l, images_r, rig: StereoRig, cfg: SlamConfig, generator: torch.Generator | None,
                     frontend: FrontendFns | None = None, frame_batch: int = 8, pair_batch: int = 8,
-                    draws: SlamDraws | None = None, timings: dict | None = None) -> SlamOutputs:
-    """Full SLAM over (N, H, W) stereo stacks on their device. ``timings``,
-    when given, receives the wall seconds of each stage (the card
-    synchronised around it)."""
+                    draws: SlamDraws | None = None) -> SlamOutputs:
+    """Full SLAM over (N, H, W) stereo stacks on their device. Each stage is
+    a span (``fs.slam.vo``, ``.relocalize``, ``.ba``, ``.loop``,
+    ``.pose_graph``; utils/trace.py)."""
     if frontend is None:
         frontend = orb_frontend(cfg.stereo.orb, cfg.stereo.max_match_distance)
     image_shape = tuple(images_l.shape[1:])
     dev = images_l.device
-    clock = _StageClock(timings, dev)
-    outs, art = run_stereo_vo_device(images_l, images_r, rig, cfg.stereo, generator, frontend, frame_batch,
-                                     pair_batch, return_artifacts=True,
-                                     gumbel=None if draws is None else draws.vo_gumbel,
-                                     uniform=None if draws is None else draws.vo_uniform)
-    clock.lap("vo")
+    with trace.span("fs.slam.vo"):
+        outs, art = run_stereo_vo_device(images_l, images_r, rig, cfg.stereo, generator, frontend, frame_batch,
+                                         pair_batch, return_artifacts=True,
+                                         gumbel=None if draws is None else draws.vo_gumbel,
+                                         uniform=None if draws is None else draws.vo_uniform)
     poses = outs.pose
     n_relocalized = 0
     if cfg.relocalize is not None:
-        poses_np, ev = relocalize_trajectory(poses, outs.ok, art, rig.left, frontend, image_shape, cfg.relocalize,
-                                             generator, None if draws is None else draws.reloc_gumbel,
-                                             None if draws is None else draws.reloc_uniform)
-        poses = torch.as_tensor(poses_np, dtype=poses.dtype, device=dev)
-        n_relocalized = ev.n_repaired
-        clock.lap("relocalize")
+        with trace.span("fs.slam.relocalize"):
+            poses_np, ev = relocalize_trajectory(poses, outs.ok, art, rig.left, frontend, image_shape,
+                                                 cfg.relocalize, generator,
+                                                 None if draws is None else draws.reloc_gumbel,
+                                                 None if draws is None else draws.reloc_uniform)
+            poses = torch.as_tensor(poses_np, dtype=poses.dtype, device=dev)
+            n_relocalized = ev.n_repaired
     if cfg.ba is not None:
-        poses = refine_trajectory_ba(poses, art, rig.left, cfg.ba, frontend=frontend, image_shape=image_shape,
-                                     pair_batch=pair_batch)
-        clock.lap("ba")
+        with trace.span("fs.slam.ba"):
+            poses = refine_trajectory_ba(poses, art, rig.left, cfg.ba, frontend=frontend, image_shape=image_shape,
+                                         pair_batch=pair_batch)
 
-    N = art.valid.shape[0]
-    T_wc = torch.cat([torch.eye(4, dtype=poses.dtype, device=dev)[None], poses])
-    kf = torch.arange(0, N, cfg.keyframe_stride, device=dev)
-    kf_feats = _map(lambda a: a[kf], art.feats)
-    kf_T = T_wc[kf]
+    with trace.span("fs.slam.loop"):
+        N = art.valid.shape[0]
+        T_wc = torch.cat([torch.eye(4, dtype=poses.dtype, device=dev)[None], poses])
+        kf = torch.arange(0, N, cfg.keyframe_stride, device=dev)
+        kf_feats = _map(lambda a: a[kf], art.feats)
+        kf_T = T_wc[kf]
 
-    sigs = descriptor_signature(kf_feats.desc, kf_feats.valid)
-    pairs, _, proposal = detect_loop_candidates(sigs, cfg.loop)
-    Z_loop, _, accepted = verify_loops(pairs, proposal, kf_feats, art.z[kf], art.z_ok[kf], rig.left, frontend,
-                                       image_shape, cfg.loop, generator,
-                                       None if draws is None else draws.loop_gumbel,
-                                       None if draws is None else draws.loop_uniform)
-    clock.lap("loop")
+        sigs = descriptor_signature(kf_feats.desc, kf_feats.valid)
+        pairs, _, proposal = detect_loop_candidates(sigs, cfg.loop)
+        Z_loop, _, accepted = verify_loops(pairs, proposal, kf_feats, art.z[kf], art.z_ok[kf], rig.left, frontend,
+                                           image_shape, cfg.loop, generator,
+                                           None if draws is None else draws.loop_gumbel,
+                                           None if draws is None else draws.loop_uniform)
 
-    ei, ej, Z_odo, w_odo = odometry_edges(kf_T)
-    w_loop = torch.where(accepted, cfg.loop_edge_weight, 0.0).to(w_odo.dtype)
-    graph = PoseGraph(poses=kf_T, edge_i=torch.cat([ei.long(), pairs[:, 0]]),
-                      edge_j=torch.cat([ej.long(), pairs[:, 1]]), edge_T=torch.cat([Z_odo, Z_loop]),
-                      edge_weight=torch.cat([w_odo, w_loop]))
-    res = optimize_pose_graph(graph, iters=cfg.pose_graph_iters)
+    with trace.span("fs.slam.pose_graph"):
+        ei, ej, Z_odo, w_odo = odometry_edges(kf_T)
+        w_loop = torch.where(accepted, cfg.loop_edge_weight, 0.0).to(w_odo.dtype)
+        graph = PoseGraph(poses=kf_T, edge_i=torch.cat([ei.long(), pairs[:, 0]]),
+                          edge_j=torch.cat([ej.long(), pairs[:, 1]]), edge_T=torch.cat([Z_odo, Z_loop]),
+                          edge_weight=torch.cat([w_odo, w_loop]))
+        res = optimize_pose_graph(graph, iters=cfg.pose_graph_iters)
 
-    anchor = torch.arange(N, device=dev) // cfg.keyframe_stride  # each frame's keyframe
-    delta = mm(res.poses, se3_inverse(kf_T))
-    T_corr = mm(delta[anchor], T_wc)
-    clock.lap("pose_graph")
+        anchor = torch.arange(N, device=dev) // cfg.keyframe_stride  # each frame's keyframe
+        delta = mm(res.poses, se3_inverse(kf_T))
+        T_corr = mm(delta[anchor], T_wc)
     return SlamOutputs(vo=outs, pose=T_corr[1:], n_loops=accepted.sum(), loop_pairs=pairs, loop_accepted=accepted,
                        n_relocalized=n_relocalized)
-
-
-class _StageClock:
-    """Wall seconds per stage into ``timings`` (nothing when it is None)."""
-
-    def __init__(self, timings, device):
-        self.timings, self.device = timings, device
-        self.t = self._now()
-
-    def _now(self):
-        if self.timings is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, name):
-        if self.timings is None:
-            return
-        t = self._now()
-        self.timings[name] = t - self.t
-        self.t = t
 
 
 def run_slam(images_l, images_r, timestamps, rig: StereoRig, cfg: SlamConfig = SlamConfig(), seed: int = 0,

@@ -47,6 +47,7 @@ from forest_slam_tpu_torch.io.tum import Trajectory
 from forest_slam_tpu_torch.stereo.depth import backproject_keypoints, depth_at_keypoints, disparity_to_depth
 from forest_slam_tpu_torch.stereo.disparity import SgmConfig, sgm_disparity
 from forest_slam_tpu_torch.stereo.sparse import SparseStereoConfig, sparse_depth_at_keypoints
+from forest_slam_tpu_torch.utils import trace
 
 # frames a dense-depth SGM call takes at once (the reference's
 # ``lax.map(batch_size=2)``): about 1.1 GB of volumes a frame at 600x960, D=96
@@ -150,11 +151,13 @@ def frame_features(images_l, images_r, rig: StereoRig, cfg: StereoConfig, fronte
     """Features + per-keypoint depth for a batch of frames (B, H, W). Dense
     depths are all marked valid: the pair phase's depth gate drops the
     clamped ones, as the reference does."""
-    feats = frontend.extract(images_l)
-    if cfg.dense_depth:
-        z = dense_depth_at_keypoints(images_l, images_r, feats.xy, rig, cfg.sgm)
-        return feats, z, torch.ones_like(z, dtype=torch.bool)
-    z, z_ok = sparse_depth_at_keypoints(images_l, images_r, feats.xy, rig.left.fx, rig.baseline, cfg.sparse)
+    with trace.span("fs.frontend.extract"):
+        feats = frontend.extract(images_l)
+    with trace.span("fs.stereo.depth"):
+        if cfg.dense_depth:
+            z = dense_depth_at_keypoints(images_l, images_r, feats.xy, rig, cfg.sgm)
+            return feats, z, torch.ones_like(z, dtype=torch.bool)
+        z, z_ok = sparse_depth_at_keypoints(images_l, images_r, feats.xy, rig.left.fx, rig.baseline, cfg.sparse)
     return feats, z, z_ok
 
 
@@ -163,41 +166,45 @@ def match_and_pnp(prev_feats, pts3d, depth_ok, cur_feats, rig: StereoRig, cfg: S
                   generator: torch.Generator | None = None, gumbel=None, uniform=None) -> PairVO:
     """Temporal match -> (refinement) -> PnP-RANSAC -> gated relative pose,
     for a batch of pairs."""
-    matches = frontend.match(prev_feats, cur_feats, image_shape)
-    mask = matches >= 0
-    idx = torch.where(mask, matches, torch.zeros_like(matches)).long()
-    valid = mask & depth_ok & prev_feats.valid
-    obs = cur_feats.xy.gather(1, idx[..., None].expand(-1, -1, 2))
+    with trace.span("fs.frontend.match"):
+        matches = frontend.match(prev_feats, cur_feats, image_shape)
+        mask = matches >= 0
+        idx = torch.where(mask, matches, torch.zeros_like(matches)).long()
+        valid = mask & depth_ok & prev_feats.valid
+        obs = cur_feats.xy.gather(1, idx[..., None].expand(-1, -1, 2))
     weights = None
     if cfg.match_refine_radius > 0 and img_prev is not None:
-        obs, ok_r, quality = refine_matches_quality(
-            img_prev, img_cur, prev_feats.xy, obs, valid,
-            RefineConfig(radius=cfg.match_refine_radius, cost_path=cfg.match_refine_cost_path,
-                         scales=tuple(cfg.match_refine_scales)),
+        with trace.span("fs.frontend.refine"):
+            obs, ok_r, quality = refine_matches_quality(
+                img_prev, img_cur, prev_feats.xy, obs, valid,
+                RefineConfig(radius=cfg.match_refine_radius, cost_path=cfg.match_refine_cost_path,
+                             scales=tuple(cfg.match_refine_scales)),
+            )
+            if cfg.match_refine_filter:
+                valid = valid & ok_r
+            if cfg.pnp_quality_sampling:
+                # floor so no valid point is unsampleable on a flat valley
+                weights = torch.clamp(quality, min=0.05)
+    with trace.span("fs.pnp"):
+        pnp = solve_pnp_ransac(
+            pts3d, obs, valid, rig.left, generator=generator,
+            reproj_threshold=cfg.reproj_threshold_px, n_hypotheses=cfg.n_hypotheses,
+            min_inliers=cfg.min_points, refine_iters=cfg.refine_iters, weights=weights,
+            gumbel=gumbel, uniform=uniform, minimal=cfg.pnp_minimal,
         )
-        if cfg.match_refine_filter:
-            valid = valid & ok_r
-        if cfg.pnp_quality_sampling:
-            # floor so no valid point is unsampleable on a flat valley
-            weights = torch.clamp(quality, min=0.05)
-    pnp = solve_pnp_ransac(
-        pts3d, obs, valid, rig.left, generator=generator,
-        reproj_threshold=cfg.reproj_threshold_px, n_hypotheses=cfg.n_hypotheses,
-        min_inliers=cfg.min_points, refine_iters=cfg.refine_iters, weights=weights,
-        gumbel=gumbel, uniform=uniform, minimal=cfg.pnp_minimal,
-    )
-    n_valid = valid.sum(-1)
-    ratio = cfg.min_inlier_ratio
-    if ratio < 0:
-        ratio = 0.0 if cfg.compose_mode == "parity" else 0.15
-    ratio_ok = pnp.n_inliers >= ratio * torch.clamp(n_valid, min=1)
-    if cfg.min_inliers_absolute > 0 and ratio > 0:
-        ratio_ok = ratio_ok | (pnp.n_inliers >= cfg.min_inliers_absolute)
-    ok = pnp.ok & (n_valid >= cfg.min_points) & ratio_ok
-    rel = se3_matrix(pnp.R, pnp.t)
-    if cfg.compose_mode == "odometry":
-        rel = se3_inverse(rel)
-    rel = torch.where(ok[:, None, None], rel, torch.eye(4, device=rel.device).expand_as(rel))
+    with trace.span("fs.stereo.gate"):
+        n_valid = valid.sum(-1)
+        ratio = cfg.min_inlier_ratio
+        if ratio < 0:
+            ratio = 0.0 if cfg.compose_mode == "parity" else 0.15
+        ratio_ok = pnp.n_inliers >= ratio * torch.clamp(n_valid, min=1)
+        if cfg.min_inliers_absolute > 0 and ratio > 0:
+            ratio_ok = ratio_ok | (pnp.n_inliers >= cfg.min_inliers_absolute)
+        ok = pnp.ok & (n_valid >= cfg.min_points) & ratio_ok
+        rel = se3_matrix(pnp.R, pnp.t)
+        if cfg.compose_mode == "odometry":
+            rel = se3_inverse(rel)
+        rel = torch.where(ok[:, None, None], rel, torch.eye(4, device=rel.device).expand_as(rel))
     return PairVO(rel=rel, ok=ok, n_matches=mask.sum(-1), n_inliers=pnp.n_inliers, pts3d=pts3d,
                   valid=valid, matches=matches, obs=obs)
 
@@ -238,7 +245,10 @@ def run_stereo_vo_batched(images_l, images_r, rig: StereoRig, cfg: StereoConfig,
     come from ``generator``, a pair chunk at a time, or, when it is None,
     from ``gumbel`` (M-1, n_hypotheses, K) and ``uniform`` (M-1, K). With
     ``cfg.photo_norm`` every frame is exposure-compensated first. With
-    ``return_artifacts``: (outputs, backend.window.StereoArtifacts)."""
+    ``return_artifacts``: (outputs, backend.window.StereoArtifacts). The
+    sequence, each chunk, the slab and the chain are spans
+    (utils/trace.py); the chunks call ``frame_features`` and
+    ``pair_from_slab`` through the module, where callers may wrap them."""
     require_draws(generator, gumbel, uniform)
     if cfg.photo_norm:
         images_l, images_r = photo_normalize_stack(images_l), photo_normalize_stack(images_r)
@@ -248,24 +258,31 @@ def run_stereo_vo_batched(images_l, images_r, rig: StereoRig, cfg: StereoConfig,
     def frames(stack, s, e):
         return stack[s:e] if idx is None else stack[idx[s:e]]
     image_shape = tuple(images_l.shape[1:])
-    parts = [frame_features(frames(images_l, s, s + frame_chunk), frames(images_r, s, s + frame_chunk), rig, cfg,
-                            frontend) for s in range(0, n, frame_chunk)]
-    feats = _cat([p[0] for p in parts])
-    slab = FrameSlab(feats, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts]))
-    refine = cfg.match_refine_radius > 0
-    outs = []
-    for s in range(0, n - 1, pair_chunk):
-        e = min(s + pair_chunk, n - 1)
-        prev = FrameSlab(_map(lambda a: a[s:e], feats), slab.z[s:e], slab.z_ok[s:e])
-        cur = _map(lambda a: a[s + 1:e + 1], feats)
-        outs.append(pair_from_slab(
-            prev.feats, prev.z, prev.z_ok, cur, rig, cfg, frontend, image_shape,
-            frames(images_l, s, e) if refine else None, frames(images_l, s + 1, e + 1) if refine else None,
-            generator=generator, gumbel=None if gumbel is None else gumbel[s:e],
-            uniform=None if uniform is None else uniform[s:e],
-        ))
-    pairs = _cat(outs)
-    out = chain_and_map(pairs, torch.eye(4, device=images_l.device))
+    with trace.sequence(images_l.device, frames=n, pairs=n - 1):
+        parts = []
+        for s in range(0, n, frame_chunk):
+            with trace.span("fs.stereo.frame_chunk", frames=min(frame_chunk, n - s)):
+                parts.append(frame_features(frames(images_l, s, s + frame_chunk), frames(images_r, s, s + frame_chunk),
+                                            rig, cfg, frontend))
+        with trace.span("fs.stereo.slab"):
+            feats = _cat([p[0] for p in parts])
+            slab = FrameSlab(feats, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts]))
+        refine = cfg.match_refine_radius > 0
+        outs = []
+        for s in range(0, n - 1, pair_chunk):
+            e = min(s + pair_chunk, n - 1)
+            with trace.span("fs.stereo.pair_chunk", pairs=e - s):
+                prev = FrameSlab(_map(lambda a: a[s:e], feats), slab.z[s:e], slab.z_ok[s:e])
+                cur = _map(lambda a: a[s + 1:e + 1], feats)
+                outs.append(pair_from_slab(
+                    prev.feats, prev.z, prev.z_ok, cur, rig, cfg, frontend, image_shape,
+                    frames(images_l, s, e) if refine else None, frames(images_l, s + 1, e + 1) if refine else None,
+                    generator=generator, gumbel=None if gumbel is None else gumbel[s:e],
+                    uniform=None if uniform is None else uniform[s:e],
+                ))
+        with trace.span("fs.stereo.chain"):
+            pairs = _cat(outs)
+            out = chain_and_map(pairs, torch.eye(4, device=images_l.device))
     if not return_artifacts:
         return out
     from forest_slam_tpu_torch.backend.window import StereoArtifacts

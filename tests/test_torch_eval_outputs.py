@@ -13,8 +13,8 @@ JAX package's.
 - ``plot`` writes its four PNGs, and ``--debug-matches`` its PNGs (checked
   as written, not pixel by pixel).
 - For every subcommand of the JAX CLI's parser, the port's parser has it,
-  and every flag with the same ``dest`` and default; ``--device`` is the
-  port's own.
+  and every flag with the same ``dest`` and default; ``--device``, and
+  ``--trace-out`` of ``stereo`` and ``slam``, are the port's own.
 """
 
 import io
@@ -244,5 +244,6 @@ def test_cli_has_every_flag_of_the_jax_cli(monkeypatch):
         for dest, default in flags.items():
             assert dest in got[name], (name, dest)
             assert got[name][dest] == default, (name, dest, got[name][dest], default)
-        assert set(got[name]) - set(flags) <= {"device"}, (name, set(got[name]) - set(flags))
+        own = {"device", "trace_out"} if name in ("stereo", "slam") else {"device"}
+        assert set(got[name]) - set(flags) <= own, (name, set(got[name]) - set(flags))
     assert "NOT_YET" not in vars(cli)
