@@ -26,16 +26,23 @@ Phases, each printing one line with its elapsed seconds:
    ``scaled_dot_product_attention`` as a yardstick, and at a ragged K=150,
    S=130; the GNN layer kernel at 16 sequences of 1024 x 256, at the lowres
    gate's 48 of 512 x 256 and at a ragged K=150, S=130; the ragged shapes
-   with one sequence whose sources are all masked);
+   with one sequence whose sources are all masked; PnP-RANSAC's
+   refine-and-select kernel at each shape of ``PNP_SHAPES`` (the learned
+   chunk's 48 pairs of K=1024, the ORB cell's 192 and the clip's 8 of 512,
+   the wide-baseline gate's 15 with P3P, loop verification's 16, the
+   streaming step's one, a bag batch and 256 hypotheses under BotanicGarden's
+   distortion), held by ``pnp_refine_agreement``, one launch a call, each
+   shape's time one launch alone and back to back);
 4. ORB path: renders a 960x600 corridor clip on the card and runs stereo VO
    through ``run_stereo_vo`` with its default ORB front end (512 features,
    8 levels, Hamming distance <= 64, 1024 DLT-6 hypotheses, no refinement),
-   counting the kernels' launches; then the same frames through the plain
-   versions, which must track the same pairs;
+   counting the kernels' launches (``pnp_refine`` once a pair batch); then
+   the same frames through the plain versions, which must track the same
+   pairs;
 5. learned path: loads the flagship checkpoint and runs stereo VO (K=1024,
    refine radius 12, 1024 DLT-6 hypotheses) on the same clip through the
-   kernels, counting their launches; then the same frames through the plain
-   versions for comparison;
+   kernels, counting their launches (``pnp_refine`` once a pair batch);
+   then the same frames through the plain versions for comparison;
 6. learned path with the unfused GNN (``bench.py --sg-gnn xla``): the same
    run with every GNN layer op by op around the attention kernel, which
    must launch while the fused layer kernel does not; then the plain
@@ -206,10 +213,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.time()
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 CUDA-core
-# and bf16 tensor-core operations/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 and
+# float64 CUDA-core and bf16 tensor-core operations/s
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+F64_OPS = 34e12
 BF16_OPS = 989e12
 
 UNIQUE_FRAMES = 16
@@ -652,6 +660,175 @@ def attention_case(dev, gen, shape):
     return err, mean_err, top, ok, masked_row_err, (q, k, v, mask, scale)
 
 
+# PnP-RANSAC's refine-and-select kernel (csrc/pnp_refine.cu) at the shapes the
+# paths hand it: name -> (pairs, points, minimal solver, the identity start's
+# anneal (0: none), hypotheses drawn, camera: "synthetic" (the clips' ideal
+# rig) or "botanic" (BotanicGarden's left camera, k1 -0.060, k2 0.094, as the
+# bag and the CLI run)); the three best hypotheses start 8 Gauss-Newton steps
+PNP_STARTS, PNP_ITERS = 3, 8
+PNP_SHAPES = {
+    "learned chunk": (BENCH_PAIRS, K, "dlt6", 48.0, 1024, "synthetic"),
+    "ORB cell chunk": (192, ORB_FEATURES, "dlt6", 48.0, 1024, "synthetic"),
+    "ORB clip batch": (PAIR_BATCH, ORB_FEATURES, "dlt6", 48.0, 1024, "synthetic"),
+    "wide-baseline gate, P3P": (GATE_PAIRS[0], K, "p3p", 48.0, 1024, "synthetic"),
+    "loop verification": (16, K, "dlt6", 48.0, 512, "synthetic"),
+    "streaming step": (1, ORB_FEATURES, "dlt6", 48.0, 512, "synthetic"),
+    "bag batch": (PAIR_BATCH, K, "dlt6", 48.0, 1024, "botanic"),
+    "256 hypotheses, bag camera": (BENCH_PAIRS, K, "dlt6", 48.0, 256, "botanic"),
+}
+PNP_LEARNED = "learned chunk"
+# pnp_refine_agreement's limit on the pairs where the kernel and the plain
+# version differ, each of which pnp_degenerate must mark: a share of a
+# call's pairs
+PNP_MAX_APART = 0.05
+
+
+def pnp_stage_args(dev, P, N, minimal, identity, seed=0, n_hypotheses=1024, camera="synthetic"):
+    """The arguments solve_pnp_ransac hands to pnp_kernel.refine_and_select
+    on P pairs of N points (30% outliers, 5% invalid, 0.2 px noise, a pose a
+    pair near tests/test_torch_pnp.py's) seen by ``camera`` (PNP_SHAPES),
+    caught by a stand-in that runs nothing."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.core.camera import PinholeCamera, project_points
+    from forest_slam_tpu_torch.core.lie import se3_exp
+    from forest_slam_tpu_torch.geometry import pnp, pnp_kernel
+    from forest_slam_tpu_torch.io import calib
+
+    rng = np.random.default_rng(seed)
+    if camera == "botanic":
+        Kmat, dist = calib.BOTANIC_K_LEFT.astype(np.float32), torch.as_tensor(calib.BOTANIC_DIST_LEFT)
+    else:
+        Kmat, dist = np.array([[643.2, 0, 479.5], [0, 643.2, 299.5], [0, 0, 1]], np.float32), torch.zeros(5)
+    xi = torch.as_tensor([0.02, -0.01, 0.15, 0.01, -0.02, 0.005] + rng.normal(size=(P, 6)) * 0.01)
+    T = se3_exp(xi).double()
+    X = torch.as_tensor(np.stack([rng.uniform(-4, 4, (P, N)), rng.uniform(-1.5, 1.5, (P, N)),
+                                  rng.uniform(3, 25, (P, N))], -1))
+    pc = X @ T[:, :3, :3].transpose(1, 2) + T[:, None, :3, 3]
+    cam64 = PinholeCamera(K=torch.as_tensor(Kmat, dtype=torch.float64), dist=dist.double(), width=960, height=600)
+    uv = project_points(pc, cam64).numpy() + rng.normal(size=(P, N, 2)) * 0.2
+    bad = rng.random((P, N)) < 0.3
+    uv[bad] += rng.uniform(-40, 40, (int(bad.sum()), 2))
+    valid = torch.as_tensor(rng.random((P, N)) > 0.05, device=dev)
+    cam = PinholeCamera(K=torch.as_tensor(Kmat, device=dev), dist=dist.float().to(dev), width=960, height=600)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    seen = []
+    real = pnp_kernel.refine_and_select
+    pnp_kernel.refine_and_select = lambda *a: seen.append(a)
+    try:
+        pnp.solve_pnp_ransac(X.float().to(dev), torch.as_tensor(uv, dtype=torch.float32, device=dev), valid, cam,
+                             generator=gen, n_hypotheses=n_hypotheses, identity_prior_anneal=identity,
+                             minimal=minimal)
+    finally:
+        pnp_kernel.refine_and_select = real
+    return seen[0]
+
+
+def pnp_degenerate(gated, chosen, k):
+    """Pairs (P,) whose candidate ``chosen`` (P,) was refined from a start
+    whose plain refinement gated one or two points in some step (``gated``:
+    candidates_plain's counts). J^T J has rank 4 or less there, the 1e-6
+    damping is below float32's resolution of it, so the plain version's
+    float32 step is rounding noise and the kernel's float64 step is not:
+    the two refinements of that start part, and under distortion one may
+    reach a NaN score, which wins. Candidate k, the unrefined start, never
+    is; k + 1 is the identity start; -1 stands for any start."""
+    if not gated:  # no refinement steps
+        return torch.zeros_like(chosen, dtype=torch.bool)
+    ill = torch.stack(gated, -1)
+    ill = ((ill > 0) & (ill < 3)).any(-1)  # (P, starts)
+    start = torch.where(chosen > k, chosen - 1, chosen).clamp(0, ill.shape[1] - 1)
+    return torch.where(chosen < 0, ill.any(-1), ill.gather(1, start[:, None])[:, 0] & (chosen != k))
+
+
+def pnp_refine_agreement(got, args, max_apart=PNP_MAX_APART) -> dict:
+    """The refine-and-select kernel's result ``got`` against the plain
+    version on the same arguments (and device), pair by pair: the candidate
+    the kernel chose (the plain candidate nearest its pose) is the plain
+    version's first maximum or scores within 1e-3 of it; R and t within
+    1e-4 of that candidate's; NaN in both or in neither; inlier counts
+    within 2, masks apart on at most 0.5% of the points. A pair that
+    differs is left out only where pnp_degenerate marks the plain choice or
+    the kernel's; where the kernel's pose is within 1e-4 of no plain
+    candidate (NaN included), which start it chose cannot be told, and any
+    start marks the pair. At most ``max_apart`` of the pairs may be left out.
+    ok is n_inliers >= min_inliers everywhere. The counts (``degenerate``:
+    pairs marked; ``apart``: pairs that differ), gaps and ``ok``."""
+    from forest_slam_tpu_torch.core.lie import so3_orthonormalize
+    from forest_slam_tpu_torch.geometry.pnp_kernel import candidates_plain
+
+    gated = []
+    P_c, inl_c, cnt_c, score = candidates_plain(*args[:-1], gated=gated)
+    k = args[2].shape[1]
+    R_c, t_c = so3_orthonormalize(P_c[..., :3]), P_c[..., 3]
+    b = torch.argmax(score, dim=1)  # refine_and_select_plain's choice
+    rows = torch.arange(len(b), device=b.device)
+    gap = ((R_c - got.R[:, None]).abs().flatten(2).amax(-1) + (t_c - got.t[:, None]).abs().amax(-1))
+    nan_got, nan_ref = torch.isnan(got.t).any(-1), torch.isnan(t_c[rows, b]).any(-1)
+    kc = torch.nan_to_num(gap, nan=float("inf")).argmin(1)
+    same_choice = (kc == b) | ((score[rows, kc] - score[rows, b]).abs() < 1e-3)
+    R_err = (got.R - R_c[rows, kc]).abs().flatten(1).amax(-1)
+    t_err = (got.t - t_c[rows, kc]).abs().amax(-1)
+    n_diff = (got.n_inliers - cnt_c[rows, b]).abs()
+    mask_frac = (got.inliers != inl_c[rows, kc]).float().mean(-1)
+    both_nan = nan_got & nan_ref
+    agree = both_nan | ((nan_got == nan_ref) & same_choice & (R_err <= 1e-4) & (t_err <= 1e-4) & (n_diff <= 2)
+                        & (mask_frac <= 0.005))
+    matched = (R_err <= 1e-4) & (t_err <= 1e-4)
+    degenerate = pnp_degenerate(gated, b, k) | pnp_degenerate(gated, torch.where(matched, kc, -1), k)
+    held = agree & ~both_nan
+    out = dict(
+        pairs=len(b), nan_pairs=int(both_nan.sum()), degenerate=int(degenerate.sum()),
+        apart=int((~agree).sum()), apart_degenerate=int((~agree & degenerate).sum()),
+        other_choice=int((kc != b)[held].sum()),
+        max_R_err=float(R_err[held].max()) if held.any() else 0.0,
+        max_t_err=float(t_err[held].max()) if held.any() else 0.0,
+        max_n_diff=int(n_diff[held].max()) if held.any() else 0,
+        max_mask_frac=float(mask_frac[held].max()) if held.any() else 0.0,
+        ok_flag=bool(torch.equal(got.ok, got.n_inliers >= args[-1])),
+        tracked=float(got.ok.float().mean()))
+    out["ok"] = bool((agree | degenerate).all()) and out["apart"] <= max_apart * len(b) and out["ok_flag"]
+    return out
+
+
+def check_pnp_refine(dev, gen):
+    """The refine-and-select kernel against its plain version at each of
+    PNP_SHAPES (pnp_refine_agreement's tolerances, one launch a call), with
+    each shape's ms (one launch, host enqueue in it) and 20 launches back
+    to back a launch; the bound at the learned chunk's shape."""
+    from forest_slam_tpu_torch.geometry.pnp_kernel import refine_and_select, refine_and_select_plain
+    from forest_slam_tpu_torch.utils.roofline import kernel_costs, pnp_refine_f64_flops
+
+    shapes = {}
+    for name, (P, N, minimal, identity, hyps, camera) in PNP_SHAPES.items():
+        args = pnp_stage_args(dev, P, N, minimal, identity, n_hypotheses=hyps, camera=camera)
+        n = refine_and_select.launches
+        agree = pnp_refine_agreement(refine_and_select(*args), args)
+        agree["ok"] &= refine_and_select.launches == n + 1
+        shapes[name] = dict(shape=(P, N, minimal, identity, hyps, camera), agreement=agree,
+                            ms=time_ms(lambda: refine_and_select(*args)),
+                            back_to_back_ms=time_ms(lambda: refine_and_select(*args), launches=20))
+        if name == PNP_LEARNED:
+            plain_ms = time_ms(lambda: refine_and_select_plain(*args))
+    P, N, _, identity, _, _ = PNP_SHAPES[PNP_LEARNED]
+    shape = (P, N, PNP_STARTS, identity > 0, PNP_ITERS)
+    ops, nbytes = kernel_costs("pnp_refine", *shape)
+    f64 = pnp_refine_f64_flops(*shape)
+    # the float32 and the float64 operations each at their own peak
+    b_ms, b_by = bound(nbytes, (ops - f64) + f64 * F32_OPS / F64_OPS, F32_OPS)
+    learned = shapes[PNP_LEARNED]
+    return dict(
+        name="pnp_refine", source="forest_slam_tpu_torch/csrc/pnp_refine.cu", replaces=None,
+        tolerance="R, t 1e-4; inliers 2; masks 0.5%; the choice or a score within 1e-3; "
+                  f"pairs apart only where degenerate, at most {PNP_MAX_APART:.0%}",
+        max_abs_err=max(max(s["agreement"]["max_R_err"], s["agreement"]["max_t_err"]) for s in shapes.values()),
+        ok=all(s["agreement"]["ok"] for s in shapes.values()), shapes=shapes,
+        ms=learned["ms"], back_to_back_ms=learned["back_to_back_ms"], plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+    )
+
+
 def check_attention(dev, gen):
     import torch.nn.functional as F
 
@@ -1008,7 +1185,7 @@ def mono_phase(wrappers, launches_by_path, smi, il, gt, rig, fe):
     launches_by_path["mono"] = {k: 0 for k in wrappers}
     orb, learned = orb_frontend(MonoConfig().orb, MonoConfig().max_match_distance), learned_frontend(fe)
     idle = {"orb": [k for k in wrappers if k != "detect"],
-            "learned": ["refine_cost", "sparse_cost", "detect", "attention"]}
+            "learned": ["refine_cost", "sparse_cost", "detect", "attention", "pnp_refine"]}
     path_kernels = {"orb": ["detect"], "learned": ["select", "gnn_layer", "sinkhorn_decode"]}
     for name, frontend, mode in (("orb_parity", orb, "parity"), ("orb_odometry", orb, "odometry"),
                                  ("learned_parity", learned, "parity"), ("learned_odometry", learned, "odometry")):
@@ -1193,8 +1370,8 @@ def slam_phase(dev, wrappers, launches_by_path, smi, fe, clip, workload):
     t_phase = time.time()
     failures, records = [], {}
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
-    orb_kernels, learned_kernels = ("detect", "sparse_cost"), ("select", "sparse_cost", "gnn_layer",
-                                                                 "sinkhorn_decode", "refine_cost")
+    orb_kernels = ("detect", "sparse_cost", "pnp_refine")
+    learned_kernels = ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost", "pnp_refine")
     orb_cfg = StereoConfig(orb=OrbConfig(n_features=ORB_FEATURES, n_levels=ORB_LEVELS), n_hypotheses=SLAM_HYPOTHESES,
                            compose_mode="odometry")
     loop_orb = orb_cfg._replace(pnp_minimal=SLAM_LOOP_MINIMAL)
@@ -1408,7 +1585,8 @@ def dense_phase(wrappers, launches_by_path, smi, run, report, il, ir):
     n_pairs = out.pose.shape[0]
     tracked, err = report("dense", out, t_run, launches, shares=False)
     failures = path_failures("dense", out, tracked, err, launches,
-                             ("select", "gnn_layer", "sinkhorn_decode", "refine_cost"), idle_kernels=("sparse_cost",))
+                             ("select", "gnn_layer", "sinkhorn_decode", "refine_cost", "pnp_refine"),
+                             idle_kernels=("sparse_cost",))
     sgm_ms = time_ms(lambda: sgm_disparity(il[:2], ir[:2], SgmConfig()), reps=3) / 2
     fixture, fix_failures = sgm_fixture_check(il.device)
     failures += fix_failures
@@ -1473,8 +1651,8 @@ BAG_GT_TOL_M = 1e-5  # gt-traj's camera poses against the rendered ones (written
 # disparity along rows of unrectified frames whose principal points differ by 5 px (quirk B3). --rectify runs,
 # and the zero-distortion run, are held.
 BAG_UNRECTIFIED_NOTE = "printed, not held: PnP's double distortion correction, unrectified stereo"
-BAG_KERNELS = {"sp": ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"),
-               "orb": ("detect", "sparse_cost")}
+BAG_KERNELS = {"sp": ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost", "pnp_refine"),
+               "orb": ("detect", "sparse_cost", "pnp_refine")}
 
 
 def bag_scene(dev, n_unique=None, n_frames=BAG_FRAMES):
@@ -1838,6 +2016,14 @@ def drive_path(wrappers, run):
     return out, {name: fn.launches for name, fn in wrappers.items()}, elapsed
 
 
+def pnp_launch_failures(name, launches, n_pairs, pair_batch=PAIR_BATCH):
+    """PnP-RANSAC's refine-and-select kernel launched once a pair chunk."""
+    chunks = -(-n_pairs // pair_batch)
+    if launches["pnp_refine"] != chunks:
+        return [f"{name}: {launches['pnp_refine']} pnp_refine launches, not one per pair chunk ({chunks})"]
+    return []
+
+
 def path_failures(name, out, tracked, err, launches, path_kernels, n_pairs=N_FRAMES - 1, max_ate=MAX_ATE_M,
                   idle_kernels=()):
     failures = []
@@ -1992,8 +2178,9 @@ def train_phase(dev, wrappers, launches_by_path, smi):
 MULTICHIP_SEQS, MULTICHIP_FRAMES = 4, 16
 MULTICHIP_POOL = 16
 MULTICHIP_UPDATE_RTOL = 5e-2  # tests/test_training.py's bound on the update norm
-MULTICHIP_KERNELS = {"learned": ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"),
-                     "orb": ("detect", "sparse_cost")}
+MULTICHIP_KERNELS = {"learned": ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost",
+                                 "pnp_refine"),
+                     "orb": ("detect", "sparse_cost", "pnp_refine")}
 DRYRUN_TIMEOUT_S = 300
 
 
@@ -2162,6 +2349,7 @@ def main() -> int:
     from forest_slam_tpu_torch.frontend.select_kernel import nms_block_max
     from forest_slam_tpu_torch.frontend.sinkhorn_kernel import sinkhorn_decode
     from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
+    from forest_slam_tpu_torch.geometry.pnp_kernel import refine_and_select
     from forest_slam_tpu_torch.pipelines.stereo import StereoConfig, run_stereo_vo, run_stereo_vo_device
     from forest_slam_tpu_torch.stereo.sparse_kernel import sparse_cost_rows
 
@@ -2176,7 +2364,7 @@ def main() -> int:
         for check in (lambda: check_sparse(dev, gen), lambda: check_gnn(dev, gen, fe),
                       lambda: check_sinkhorn(dev, gen, fe), lambda: check_refine(dev, gen),
                       lambda: check_detect(dev, gen), lambda: check_select(dev, gen),
-                      lambda: check_attention(dev, gen)):
+                      lambda: check_attention(dev, gen), lambda: check_pnp_refine(dev, gen)):
             r = check()
             results.append(r)
             log(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.6g} (tolerance {r['tolerance']}) "
@@ -2232,6 +2420,12 @@ def main() -> int:
         log(f"  gnn_layer at (N, K, S, D) = {tuple(o['shape'])}{', one sequence fully masked' if o['all_masked_sequence'] else ''}: "
             f"max error {o['max_abs_err']:.6g} of {o['max_abs_ref']:.4g}, mean {o['mean_abs_err']:.3g}: "
             f"{'PASS' if o['ok'] else 'FAIL'}; {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms")
+    for name, o in by_name["pnp_refine"]["shapes"].items():
+        P, N, minimal, identity, hyps, camera = o["shape"]
+        log(f"  pnp_refine, {name}: {P} pairs of {N} points, the {PNP_STARTS} best of {hyps} {minimal} hypotheses"
+            f"{' and the identity' if identity else ''}, {camera} camera, {PNP_ITERS} steps: "
+            f"{'PASS' if o['agreement']['ok'] else 'FAIL'}; {o['ms']:.4f} ms, {o['back_to_back_ms']:.4f} ms a launch "
+            f"back to back; agreement {o['agreement']}")
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         print(f"FAIL: kernels disagree with their plain versions: {bad}", file=sys.stderr)
@@ -2243,7 +2437,7 @@ def main() -> int:
     n_pairs = N_FRAMES - 1
     wrappers = {"sparse_cost": sparse_cost_rows, "gnn_layer": gnn_layer, "sinkhorn_decode": sinkhorn_decode,
                 "refine_cost": refine_cost_volume, "detect": detect_pooled, "select": nms_block_max,
-                "attention": attention_forward}
+                "attention": attention_forward, "pnp_refine": refine_and_select}
     ms_of = {r["name"]: r["ms"] for r in results}
     failures, launches_by_path = [], {}
 
@@ -2283,9 +2477,10 @@ def main() -> int:
     out, launches, t_run = drive_path(wrappers, run_orb(orb_cfg))
     launches_by_path["orb"] = launches
     tracked, err = report("ORB", out, t_run, launches)
-    failures += path_failures("ORB", out, tracked, err, launches, ("detect", "sparse_cost"))
+    failures += path_failures("ORB", out, tracked, err, launches, ("detect", "sparse_cost", "pnp_refine"))
     if launches["detect"] != N_FRAMES // FRAME_BATCH:  # one launch per frame batch, all levels in it
         failures.append(f"ORB: {launches['detect']} detect launches, not one per frame batch")
+    failures += pnp_launch_failures("ORB", launches, n_pairs)
     plain_orb = orb_cfg._replace(orb=orb_cfg.orb._replace(detect_path="plain"),
                                  sparse=orb_cfg.sparse._replace(cost_path="plain"))
     plain_out, _, t_plain = drive_path(wrappers, run_orb(plain_orb))
@@ -2309,7 +2504,8 @@ def main() -> int:
     launches_by_path["learned"] = launches
     tracked, err = report("learned", out, t_run, launches)
     failures += path_failures("learned", out, tracked, err, launches,
-                              ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost"))
+                              ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost", "pnp_refine"))
+    failures += pnp_launch_failures("learned", launches, n_pairs)
     plain_sp = {"nms_backend": "plain"}
     plain_fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev, superpoint_overrides=plain_sp,
                                      superglue_overrides={"gnn_impl": "plain", "sinkhorn_impl": "plain"})
@@ -2327,7 +2523,7 @@ def main() -> int:
     launches_by_path["unfused"] = launches
     tracked, err = report("unfused-GNN", out, t_run, launches)
     failures += path_failures("unfused-GNN", out, tracked, err, launches,
-                              ("attention", "select", "sparse_cost", "sinkhorn_decode", "refine_cost"),
+                              ("attention", "select", "sparse_cost", "sinkhorn_decode", "refine_cost", "pnp_refine"),
                               idle_kernels=("gnn_layer",))
     del fe_x
     plain_fe = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev, superpoint_overrides=plain_sp,
@@ -2346,7 +2542,8 @@ def main() -> int:
     launches_by_path["flash"] = launches
     tracked, err = report("unfused-GNN with scaled_dot_product_attention", out, t_run, launches)
     failures += path_failures("flash", out, tracked, err, launches,
-                              ("select", "sparse_cost", "sinkhorn_decode", "refine_cost"), max_ate=float("inf"),
+                              ("select", "sparse_cost", "sinkhorn_decode", "refine_cost", "pnp_refine"),
+                              max_ate=float("inf"),
                               idle_kernels=("gnn_layer", "attention"))
     del fe_f
 
@@ -2362,7 +2559,7 @@ def main() -> int:
     log(f"  lowres gate at {LOWRES_W}x{LOWRES_H}, octaves {scales}: {tracked}/{LOWRES_FRAMES - 1} tracked, "
         f"ATE {err:.4f} m; the reference's record: {LOWRES_REFERENCE}")
     failures += path_failures("lowres gate", out, tracked, err, launches,
-                              ("select", "gnn_layer", "sparse_cost", "sinkhorn_decode", "refine_cost"),
+                              ("select", "gnn_layer", "sparse_cost", "sinkhorn_decode", "refine_cost", "pnp_refine"),
                               n_pairs=LOWRES_FRAMES - 1, max_ate=LOWRES_MAX_ATE_M)
     del plain_out, out
     torch.cuda.empty_cache()
@@ -2380,8 +2577,8 @@ def main() -> int:
     # bench.py's 962-pair workload, learned then ORB
     records, timed_workloads = {}, {}
     for kind, n_timed, path_kernels in (("sp", 3, ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode",
-                                                   "refine_cost")),
-                                        ("orb", 1, ("detect", "sparse_cost"))):
+                                                   "refine_cost", "pnp_refine")),
+                                        ("orb", 1, ("detect", "sparse_cost", "pnp_refine"))):
         wl = bench.prepare_workload(kind, dev, fe=fe if kind == "sp" else None)
         name = f"bench_{'learned' if kind == 'sp' else 'orb'}"
         if kind == "sp" and wl.frontend != "superpoint_superglue":
@@ -2454,7 +2651,8 @@ def main() -> int:
               flush=True)
     held = {g.tag for g in bench.GATES if g.held}
     failures += [f"gate {f}" for f in gate_failures if f.split(":")[0] in held]
-    zero = [k for k in ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost") if launches[k] == 0]
+    zero = [k for k in ("select", "sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost", "pnp_refine")
+            if launches[k] == 0]
     if zero:
         failures.append(f"gates: kernels never launched: {zero}")
     print(json.dumps({"gates": gates, "gate_failures": gate_failures or None, "not_run": not_run}), flush=True)

@@ -6,8 +6,11 @@ or Grunert's 3-point solution (up to four rigid poses a draw, from a quartic
 solved in closed form in complex arithmetic); preemptive scoring on a random
 point subset; the three best hypotheses plus
 the identity pose refined by annealed Gauss-Newton with an analytic
-Jacobian; the best candidate by consensus, then re-orthonormalised.
-Returned (R, t) map object points into the camera (x_cam = R X + t).
+Jacobian; the best candidate by consensus, then re-orthonormalised. That
+last stage, from the top-k starts on, is geometry/pnp_kernel.py's
+``refine_and_select``: one CUDA launch a call on the card, the PyTorch ops
+below on the CPU. Returned (R, t) map object points into the camera
+(x_cam = R X + t).
 
 The random numbers (the Gumbel noise of the minimal-sample draws and the
 uniforms of the preemptive subset) can be passed in, so a test can hand the
@@ -21,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from forest_slam_tpu_torch.core.camera import PinholeCamera, project_points, undistort_points
-from forest_slam_tpu_torch.core.lie import hat, mm, se3_compose, se3_exp, se3_matrix, so3_orthonormalize
+from forest_slam_tpu_torch.core.lie import hat, mm, se3_compose, se3_exp
 from forest_slam_tpu_torch.geometry.ransac import gumbel_noise, ransac_sample_indices, stable_topk
 
 
@@ -256,12 +259,18 @@ def _projection_jacobian(pc: torch.Tensor, cam: PinholeCamera) -> torch.Tensor:
     return mm(jpix, jpc)
 
 
+# the Levenberg damping of the Gauss-Newton normal equations, read by
+# pnp_kernel.refine_and_select's kernel too
+GN_DAMPING = 1e-6
+
+
 def gauss_newton_refine(T0, pts3d, pts2d, valid, cam: PinholeCamera, threshold: float, iters: int = 8,
-                        anneal=4.0, damping: float = 1e-6):
+                        anneal=4.0, damping: float = GN_DAMPING, gated: list | None = None):
     """Gauss-Newton on reprojection error with an annealed inlier gate
     (``anneal * threshold`` tightening to ``threshold`` over the first half
     of the iterations). T0 (..., 4, 4); points broadcast against it;
-    ``anneal`` a float or a tensor of T0's batch shape."""
+    ``anneal`` a float or a tensor of T0's batch shape. ``gated``, if a
+    list, receives each step's count of gated points (T0's batch shape)."""
     half = max(iters // 2, 1)
     anneal = torch.as_tensor(anneal, dtype=T0.dtype, device=T0.device)
     T = T0
@@ -272,6 +281,8 @@ def gauss_newton_refine(T0, pts3d, pts2d, valid, cam: PinholeCamera, threshold: 
         proj = project_points(pc, cam, with_distortion=True)
         d = proj - pts2d
         w = ((torch.linalg.vector_norm(d, dim=-1) < gate[..., None]) & valid).to(T.dtype)
+        if gated is not None:
+            gated.append(w.sum(-1))
         r = (d * w[..., None]).flatten(-2)  # (..., 2N)
         J = (_projection_jacobian(pc, cam) * w[..., None, None]).flatten(-3, -2)  # (..., 2N, 6)
         H = (J.unsqueeze(-1) * J.unsqueeze(-2)).sum(-3) + damping * torch.eye(6, dtype=T.dtype, device=T.device)
@@ -350,29 +361,8 @@ def solve_pnp_ransac(
 
     k = min(max(n_starts, 1), Ps.shape[1])
     top = stable_topk(counts, k)  # (P, k)
-    P_top = Ps.gather(1, top[..., None, None].expand(-1, -1, 3, 4))
-    inl_top = inl.gather(1, top[..., None].expand(-1, -1, N))
-    P_tops = orthogonalize_pose(P_top, pts3d[:, None], inl_top)  # (P, k, 3, 4)
-    T0s = se3_matrix(P_tops[..., :3], P_tops[..., 3])
-    anneal = torch.full((P, k), 4.0, device=dev)
-    if identity_prior_anneal > 0:
-        T0s = torch.cat([T0s, torch.eye(4, device=dev).expand(P, 1, 4, 4)], dim=1)
-        anneal = torch.cat([anneal, torch.full((P, 1), float(identity_prior_anneal), device=dev)], dim=1)
-    Ts = gauss_newton_refine(T0s, pts3d[:, None], pts2d[:, None], valid[:, None], cam, reproj_threshold,
-                             iters=refine_iters, anneal=anneal)
-    # candidates: the k refined poses, the best unrefined one, the identity start
-    cands = [Ts[:, :k, :3, :], P_tops[:, :1]]
-    if identity_prior_anneal > 0:
-        cands.append(Ts[:, k:, :3, :])
-    P_c = torch.cat(cands, dim=1)
-    err_c = reproject_error(P_c, pts3d[:, None], pts2d[:, None], cam)
-    inl_c = (err_c < reproj_threshold) & valid[:, None]
-    cnt_c = inl_c.sum(-1)
-    mean_err = (err_c * inl_c).sum(-1) / torch.clamp(cnt_c, min=1)
-    score = cnt_c.float() + torch.clamp(1.0 - mean_err / reproj_threshold, 0.0, 1.0)
-    b = torch.argmax(score, dim=1)  # first maximum
-    P_fin = P_c.gather(1, b[:, None, None, None].expand(-1, 1, 3, 4))[:, 0]
-    R = so3_orthonormalize(P_fin[..., :3])
-    inl_fin = inl_c.gather(1, b[:, None, None].expand(-1, 1, N))[:, 0]
-    n = cnt_c.gather(1, b[:, None])[:, 0]
-    return PnPResult(R=R, t=P_fin[..., 3], inliers=inl_fin, n_inliers=n, ok=n >= min_inliers)
+    # imported here: pnp_kernel's plain version is built from this module
+    from forest_slam_tpu_torch.geometry import pnp_kernel
+
+    return pnp_kernel.refine_and_select(Ps, inl, top, pts3d, pts2d, valid, cam, reproj_threshold, refine_iters,
+                                        identity_prior_anneal, min_inliers)

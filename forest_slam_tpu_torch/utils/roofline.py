@@ -208,6 +208,34 @@ def attention_cost(B: int, h: int, K: int, S: int, dh: int) -> StageCost:
     return StageCost(4 * B * h * K * S * dh, 4 * (B * h * K * dh) * 2 + B * S)
 
 
+# A point's Gauss-Newton step in csrc/pnp_refine.cu, in float32: R p + t
+# (18), the projection (6), the residual and its gate (6), the 2 x 3 pixel
+# Jacobian (12) and its product with [I | -hat(p)] (36); in float64: J^T J's
+# upper triangle over two rows (84) and J^T r (24)
+PNP_GN_POINT_FLOPS_F32 = 78
+PNP_GN_POINT_FLOPS_F64 = 108
+
+
+def pnp_refine_cost(P: int, N: int, k: int, identity: bool, iters: int) -> StageCost:
+    """csrc/pnp_refine.cu on P pairs of N points: ``iters`` Gauss-Newton
+    steps over every point for each of the k starts (and the identity), then
+    each candidate scored on every point (PNP_SCORE_FLOPS); the points, the
+    starts and their indices read once, the pose, count and mask written.
+    The operations of both precisions; :func:`pnp_refine_f64_flops` gives
+    the float64 part."""
+    starts = k + int(identity)
+    gn = PNP_GN_POINT_FLOPS_F32 + PNP_GN_POINT_FLOPS_F64
+    ops = P * N * (starts * iters * gn + (starts + 1) * PNP_SCORE_FLOPS)
+    nbytes = P * (N * (12 + 8 + 1) + k * (48 + 8) + 36 + 12 + N + 8 + 1) + 4 * (9 + 5)
+    return StageCost(ops, nbytes)
+
+
+def pnp_refine_f64_flops(P: int, N: int, k: int, identity: bool, iters: int) -> int:
+    """The float64 part of :func:`pnp_refine_cost`'s operations: the normal
+    equations' sums, which run at the card's float64 rate."""
+    return P * N * (k + int(identity)) * iters * PNP_GN_POINT_FLOPS_F64
+
+
 _KERNELS = {
     "sparse_cost": sparse_cost_cost,
     "gnn_layer": gnn_layer_cost,
@@ -216,6 +244,7 @@ _KERNELS = {
     "detect": detect_cost,
     "select": select_cost,
     "attention": attention_cost,
+    "pnp_refine": pnp_refine_cost,
 }
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's seven kernels of one checkout on one GPU.
+"""Time the port's kernels of one checkout on one GPU.
 
     python3 scripts/torch_kernel_ab.py [--root DIR] [--kernels detect,refine_cost] [--sinkhorn-clusters 8,12,16]
 
@@ -17,7 +17,10 @@ corridor frames; ``refine_cost_volume`` at 8 pairs of K=1024 at 960x600 and
 the lowres gate's 23 pairs of K=512; ``sparse_cost_rows`` (D=96, w=7) at
 the ORB path's 8 frames of K=512 and the learned paths' 8 of K=1024 at
 960x600 and the lowres gate's 24 of K=512 at 224x160; ``nms_block_max`` at 8
-960x600 heat maps and the lowres gate's three octaves of 24. The case
+960x600 heat maps and the lowres gate's three octaves of 24; and, when
+named in ``--kernels`` (checkouts from the one that added it),
+``refine_and_select`` (PnP-RANSAC's refine-and-select stage) at the learned
+chunk's 48 pairs of K=1024, with its plain version's times beside it. The case
 functions (inputs and the check against the plain versions) are
 ``chip_smoke.py``'s, loaded from this repository whatever ``DIR`` is, so
 both checkouts get the same inputs and the same tolerances.
@@ -31,7 +34,7 @@ divided by 20 (the median of three such windows). ``--sinkhorn-clusters``
 also times the Sinkhorn kernel with each of the given cluster sizes forced
 (checkouts whose wrapper has ``_launch(..., cluster)``). ``--kernels``
 times only the named kernels (attention, gnn_layer, sinkhorn_decode, detect,
-refine_cost, sparse_cost, select; default all). The last line of
+refine_cost, sparse_cost, select, pnp_refine; default all but pnp_refine). The last line of
 its output is one JSON object with the times, whether each kernel was within
 its tolerance, the card's name and its power limit.
 
@@ -193,6 +196,14 @@ def main() -> int:
             for shape in smoke.select_shapes():
                 ok, _, _, heat = smoke.select_case(dev, gen, shape)
                 timed("select {}x{}x{}".format(*shape), ok, lambda: nms_block_max(heat))
+        if "pnp_refine" in kernels:
+            from forest_slam_tpu_torch.geometry.pnp_kernel import refine_and_select, refine_and_select_plain
+
+            P, N, minimal, identity, hyps, camera = smoke.PNP_SHAPES[smoke.PNP_LEARNED]
+            args = smoke.pnp_stage_args(dev, P, N, minimal, identity, n_hypotheses=hyps, camera=camera)
+            agree = smoke.pnp_refine_agreement(refine_and_select(*args), args)
+            timed("pnp_refine", agree["ok"], lambda: refine_and_select(*args))
+            timed("pnp_refine plain", True, lambda: refine_and_select_plain(*args))
     ok = all(r["ok"] for r in out["kernels"].values())
     print(f"{out['label']} on {out['device']}; within tolerance: {ok}", flush=True)
     for name, r in out["kernels"].items():

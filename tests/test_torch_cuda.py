@@ -30,7 +30,14 @@ dense path and the plain version, and ``--refine-cost-path pallas`` equal to
 sharded train step against ``train_step`` within
 chip_smoke.TRAIN_AGREEMENT and tests/test_training.py's 5% on the update
 norm, and ``run_batched_eval`` equal to ``run_stereo_vo_device`` on each
-sequence bit for bit.
+sequence bit for bit. PnP-RANSAC's refine-and-select kernel (``-k pnp``)
+against its plain version: the candidate it picks the plain version's or
+within 1e-3 in score, R and t to 1e-4, inlier counts within 2 and masks
+within 0.5% (summation order moves points at the gate), at 1 to 192 pairs,
+DLT-6 and P3P, and with 256 hypotheses under BotanicGarden's distortion on
+six seeds, where only pairs chip_smoke.pnp_degenerate marks may differ (at
+most 5% of a call's pairs, counted); solve_pnp_ransac with its draws
+handed in syncs nothing.
 """
 
 import pytest
@@ -1149,3 +1156,108 @@ def test_multichip_batched_eval_equals_each_sequence(cuda):
                                      frame_batch=4, pair_batch=4)
         assert np.array_equal(poses[s], alone.pose.double().cpu().numpy())
         assert np.array_equal(ok[s], alone.ok.cpu().numpy())
+
+
+def _agree(got, args):
+    """chip_smoke.pnp_refine_agreement's check of the kernel's result
+    against the plain version on the same arguments."""
+    a = _chip_smoke().pnp_refine_agreement(got, args)
+    assert a["ok"], a
+
+
+# P pairs of N points, the minimal solver, the identity start's anneal (0: none)
+@pytest.mark.parametrize("P, N, minimal, identity", [
+    (1, 512, "dlt6", 48.0), (2, 700, "dlt6", 0.0), (2, 700, "p3p", 48.0), (48, 1024, "dlt6", 48.0),
+    (48, 1024, "p3p", 0.0), (192, 512, "dlt6", 48.0), (192, 1024, "dlt6", 0.0), (1, 1024, "p3p", 48.0)])
+def test_pnp_refine_kernel(cuda, P, N, minimal, identity):
+    """csrc/pnp_refine.cu against pnp_kernel.refine_and_select_plain on the
+    card, one launch a call."""
+    from forest_slam_tpu_torch.geometry.pnp_kernel import refine_and_select
+
+    dev, _ = cuda
+    args = _chip_smoke().pnp_stage_args(dev, P, N, minimal, identity)
+    n = refine_and_select.launches
+    got = refine_and_select(*args)
+    assert refine_and_select.launches == n + 1
+    _agree(got, args)
+    assert got.ok.float().mean() > 0.9
+
+
+@pytest.mark.parametrize("minimal, identity", [("dlt6", 48.0), ("dlt6", 0.0), ("p3p", 48.0)])
+def test_pnp_refine_kernel_distorted_camera(cuda, minimal, identity):
+    """256 hypotheses and BotanicGarden's distorted left camera, as the bag
+    and the CLI run, on six seeds of 48 pairs of 1024 points: every pair
+    agrees but those chip_smoke.pnp_degenerate marks (the plain version
+    refines the chosen start through a step that gates one or two points),
+    and those that differ are at most PNP_MAX_APART of each call's pairs;
+    the counts are printed."""
+    from forest_slam_tpu_torch.geometry.pnp_kernel import refine_and_select
+
+    dev, _ = cuda
+    cs = _chip_smoke()
+    seen = []
+    for seed in range(6):
+        args = cs.pnp_stage_args(dev, 48, 1024, minimal, identity, seed=seed, n_hypotheses=256, camera="botanic")
+        a = cs.pnp_refine_agreement(refine_and_select(*args), args)
+        assert a["ok"], (seed, a)
+        seen.append((a["degenerate"], a["apart"], a["nan_pairs"]))
+    print(f"{minimal}, identity {identity}: (degenerate, apart, NaN in both) pairs of 48 a seed: {seen}")
+
+
+def test_pnp_refine_kernel_nan_and_many_starts(cuda):
+    """A NaN hypothesis among the starts gives a NaN candidate, whose NaN
+    score wins as torch.argmax lets it, in both versions; eight starts and
+    no refinement steps run too."""
+    from forest_slam_tpu_torch.geometry.pnp_kernel import refine_and_select
+    from forest_slam_tpu_torch.geometry.ransac import stable_topk
+
+    dev, _ = cuda
+    Ps, inl, top, *rest = _chip_smoke().pnp_stage_args(dev, 4, 700, "dlt6", 48.0)
+    Ps = Ps.clone()
+    Ps[1, top[1, 1]] = float("nan")
+    args = (Ps, inl, top, *rest)
+    got = refine_and_select(*args)
+    assert bool(torch.isnan(got.t[1]).all()) and int(got.n_inliers[1]) == 0 and not bool(got.ok[1])
+    _agree(got, args)
+    Ps, inl, top, *rest = _chip_smoke().pnp_stage_args(dev, 3, 512, "dlt6", 48.0, seed=1)
+    top8 = stable_topk(inl.sum(-1), 8)
+    for iters in (0, 8):
+        args = (Ps, inl, top8, *rest[:5], iters, *rest[6:])
+        _agree(refine_and_select(*args), args)
+
+
+def test_pnp_refine_kernel_refuses(cuda):
+    from forest_slam_tpu_torch.geometry.pnp_kernel import MAX_POINTS, refine_and_select
+
+    dev, _ = cuda
+    Ps, inl, top, p3, p2, v, cam, *rest = _chip_smoke().pnp_stage_args(dev, 2, 300, "dlt6", 48.0)
+    with pytest.raises(ValueError, match="starts"):
+        refine_and_select(Ps, inl, torch.zeros((2, 9), dtype=torch.int64, device=dev), p3, p2, v, cam, *rest)
+    with pytest.raises(ValueError, match="float32"):
+        refine_and_select(Ps, inl, top, p3.double(), p2, v, cam, *rest)
+    big = torch.zeros((2, MAX_POINTS + 1, 3), device=dev)
+    with pytest.raises(ValueError, match="points"):
+        refine_and_select(Ps, inl, top, big, big[..., :2], big[..., 0] > 0, cam, *rest)
+
+
+def test_solve_pnp_ransac_makes_no_host_sync(cuda):
+    """DLT-6 PnP-RANSAC at the learned cell's chunk (48 pairs, N = 1024, 1024
+    hypotheses) with its draws handed in runs under sync debug mode "error":
+    nothing in it waits on the card."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.geometry.pnp import solve_pnp_ransac
+    from forest_slam_tpu_torch.geometry.ransac import gumbel_noise
+
+    dev, g = cuda
+    _, _, _, p3, p2, valid, cam, *_ = _chip_smoke().pnp_stage_args(dev, 48, 1024, "dlt6", 48.0)
+    G = gumbel_noise((48, 1024, 1024), g, dev)
+    U = 1e-9 + (1.0 - 1e-9) * torch.rand((48, 1024), generator=g, device=dev)
+    solve_pnp_ransac(p3, p2, valid, cam, n_hypotheses=1024, gumbel=G, uniform=U)  # warm: build and first use
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = solve_pnp_ransac(p3, p2, valid, cam, n_hypotheses=1024, gumbel=G, uniform=U)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.mean(res.ok.cpu().numpy()) > 0.9

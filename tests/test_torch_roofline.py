@@ -146,7 +146,7 @@ def test_gnn_weight_bytes_are_the_kernel_tuple():
     ws = split_layer_params(layer.flax_params(), 4)
     assert roofline.gnn_layer_weight_bytes(256) == sum(t.numel() * t.element_size() for t in ws)
     assert set(roofline._KERNELS) == {"sparse_cost", "gnn_layer", "sinkhorn_decode", "refine_cost", "detect",
-                                      "select", "attention"}
+                                      "select", "attention", "pnp_refine"}
 
 
 class _Bytes(TorchDispatchMode):
