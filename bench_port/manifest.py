@@ -1,5 +1,6 @@
 """Finds a cell's files by the names in ``BENCHMARK.json``: the
-configuration file it names, ``traffic/<traffic>.json``,
+configuration file it names, ``frontends/<frontend>.py`` by the
+configuration's ``frontend``, ``traffic/<traffic>.json``,
 ``limits/<workload>.json`` and ``metrics/<metric>.py`` under this
 directory."""
 
@@ -24,6 +25,7 @@ class Cell(NamedTuple):
     end_to_end: list  # the manifest's end-to-end entries this cell reports
     per_layer: list  # the manifest's per-layer entries this cell reports
     root: str
+    frontend: object  # the module of frontends/<config's frontend>.py
 
 
 def _json(path: str):
@@ -35,8 +37,36 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def _load(path: str, prefix: str, name: str):
+    spec = importlib.util.spec_from_file_location(prefix + re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def frontend(name: str, root: str = ROOT):
+    """The module of ``frontends/<name>.py``: the front end's keypoint
+    budget, weights, the port's front end, the reference's, its part of
+    the check and of the roofline (README.md)."""
+    path = os.path.join(root, os.path.basename(HERE), "frontends", name + ".py")
+    if not os.path.isfile(path):
+        raise ValueError(f"front end {name!r}: no file {path}")
+    return _load(path, "bench_port_frontend_", name)
+
+
+def _check_reference_covers(cfg: dict) -> None:
+    """Refuse a configuration whose settings the reference does not
+    compute: it solves PnP by DLT-6 alone and refines at scale 1 alone."""
+    if cfg["pnp_minimal"] != "dlt6":
+        raise ValueError(f"pnp_minimal {cfg['pnp_minimal']!r}: the reference solves \"dlt6\" only")
+    if list(cfg["refine_scales"]) != [1.0]:
+        raise ValueError(f"refine_scales {cfg['refine_scales']!r}: the reference refines at [1.0] only")
+
+
 def load_cell(name: str, root: str = ROOT) -> Cell:
-    """The cell ``name`` of ``root``'s manifest with its files."""
+    """The cell ``name`` of ``root``'s manifest with its files; raises
+    ValueError, before any set-up, for a front end with no file or a
+    setting the reference does not compute."""
     man = _json(os.path.join(root, "BENCHMARK.json"))
     work = {w["name"]: w for w in man["workloads"]}
     if name not in work:
@@ -47,15 +77,14 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     e2e = [m for m in man["end_to_end"] if _reports(m, name)]
     moved = {m["name"] for m in e2e}
     per = [m for m in man["per_layer"] if _reports(m, name) and m["moves"] in moved]
-    return Cell(name=name, workload=w, config=_json(os.path.join(root, conf["file"])),
-                traffic=_json(os.path.join(pkg, "traffic", w["traffic"] + ".json")),
-                limits=_json(os.path.join(pkg, "limits", name + ".json")), end_to_end=e2e, per_layer=per, root=root)
+    cfg = _json(os.path.join(root, conf["file"]))
+    _check_reference_covers(cfg)
+    return Cell(name=name, workload=w, config=cfg, traffic=_json(os.path.join(pkg, "traffic", w["traffic"] + ".json")),
+                limits=_json(os.path.join(pkg, "limits", name + ".json")), end_to_end=e2e, per_layer=per, root=root,
+                frontend=frontend(cfg["frontend"], root))
 
 
 def reader(metric: str, root: str = ROOT):
     """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(root, os.path.basename(HERE), "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location("bench_port_metric_" + re.sub(r"\W", "_", metric), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(os.path.join(root, os.path.basename(HERE), "metrics", metric + ".py"), "bench_port_metric_",
+                 metric).read

@@ -3,19 +3,21 @@ with the plain reference's answers for the same inputs, each held to the
 cell's limit.
 
 Keypoints are paired between the two sides by frame, pixel position
-(quantised to 1/8 px) and, for ORB, pyramid level; a match is common
-where both its ends are paired and the other side makes the same match.
+(quantised to 1/8 px) and the front end's slot group (ORB's pyramid level);
+a match is common where both its ends are paired and the other side makes
+the same match.
 
 - ``kp_miss``: keypoints on one side only, over all keypoints of both sides,
   every virtual frame.
-- ``desc_gap``: on keypoints both sides found, the mean L2 distance of the
-  unit descriptors (learned) or the mean share of differing BRIEF bits (ORB).
+- ``desc_gap``: on keypoints both sides found, the front end's descriptor
+  gap: the mean L2 distance of the unit descriptors (learned) or the mean
+  share of differing BRIEF bits (ORB).
 - ``depth_gap``: on keypoints both sides found, the mean of min(1, relative
   depth gap) where both call the depth valid, 1 where one side alone does.
 - ``match_miss``: matches on one side only, over all matches of both sides,
   every virtual pair.
 - ``obs_gap``: on matches both sides made, the mean gap in pixels of the
-  refined observation fed to PnP (where refinement runs).
+  refined observation fed to PnP (where the front end compares them).
 - ``pose_gap_mean``: the mean over the pairs of the Frobenius norm of the
   difference of a pair's gated relative pose (identity where the pose is not
   accepted, so an accept flag that differs adds about 1 or more over the
@@ -71,17 +73,6 @@ def _common_matches(m_a, map_ab, m_b):
     return ok & (ka >= 0) & (ma >= 0) & (mb == ma)
 
 
-def slot_groups(cfg: dict, K: int):
-    """(K,) the group of each keypoint slot: ORB's pyramid level (a level's
-    keypoints can sit on another level's positions), else 0."""
-    if cfg["frontend"] != "orb":
-        return torch.zeros(K, dtype=torch.long)
-    from bench_port.reference.orb import level_geometry
-
-    _, budgets = level_geometry(64, 64, cfg["orb"])
-    return torch.repeat_interleave(torch.arange(len(budgets)), torch.tensor(budgets))
-
-
 def relative_from_chain(poses):
     """Gated relative poses from the chained poses of frames 1..M-1."""
     from bench_port.reference.common import mm, se3_inverse
@@ -90,8 +81,10 @@ def relative_from_chain(poses):
     return mm(se3_inverse(prev), poses)
 
 
-def numbers(prog: dict, ref: dict, index, image_shape, cfg: dict, look: dict | None = None) -> dict:
-    """The check's numbers. ``prog``: the program's per virtual frame xy,
+def numbers(prog: dict, ref: dict, index, image_shape, cfg: dict, frontend, look: dict | None = None) -> dict:
+    """The check's numbers, the front end's part by ``frontend``
+    (``frontends/<frontend>.py``: ``slot_groups``, ``desc_gap``,
+    ``compares_obs``). ``prog``: the program's per virtual frame xy,
     valid, desc, z, z_ok (M, K, ...); per pair matches (M-1, K), obs (or
     None), poses (M-1, 4, 4) of the checked sequence; ``window_poses`` a
     list of every window sequence's poses. ``ref``: the reference's run.
@@ -99,9 +92,8 @@ def numbers(prog: dict, ref: dict, index, image_shape, cfg: dict, look: dict | N
     set it, with how many matches each side alone made there."""
     H, W = image_shape
     M, K = prog["valid"].shape
-    learned = cfg["frontend"] == "superpoint_superglue"
     rf = {k: v[index] for k, v in ref["frames"].items()}
-    group = slot_groups(cfg, K).to(prog["xy"].device)
+    group = frontend.slot_groups(cfg, K).to(prog["xy"].device)
     key_p, bits = _pos_key(prog["xy"], H, W)
     key_r, _ = _pos_key(rf["xy"], H, W)
     key_p, key_r = key_p + group * (1 << bits), key_r + group * (1 << bits)
@@ -112,13 +104,7 @@ def numbers(prog: dict, ref: dict, index, image_shape, cfg: dict, look: dict | N
     common = p2r >= 0
     rs = p2r.clamp(min=0)
     take = lambda t: t.gather(1, rs) if t.dim() == 2 else t.gather(1, rs[..., None].expand(-1, -1, t.shape[-1]))
-    if learned:
-        d = (prog["desc"].float() - take(rf["desc"]).float())[common]
-        out["desc_gap"] = float(torch.linalg.vector_norm(d, dim=-1).mean()) if d.numel() else 0.0
-    else:
-        x = (prog["desc"] ^ take(rf["desc"]))[common]
-        bitsum = ((x[..., None] >> torch.arange(32, device=x.device)) & 1).sum(dim=(-1, -2))
-        out["desc_gap"] = float(bitsum.float().mean() / 256.0) if x.numel() else 0.0
+    out["desc_gap"] = frontend.desc_gap(prog["desc"][common], take(rf["desc"])[common])
     zp, zr = prog["z"][common], take(rf["z"])[common]
     op, orr = prog["z_ok"][common], take(rf["z_ok"])[common]
     g = torch.where(op & orr, torch.clamp((zp - zr).abs() / torch.clamp(zr.abs(), min=1e-6), max=1.0),
@@ -128,7 +114,7 @@ def numbers(prog: dict, ref: dict, index, image_shape, cfg: dict, look: dict | N
     same_r = _common_matches(ref["matches"], r2p, prog["matches"])
     out["match_miss"] = _share(int(same_p.sum()), int(same_r.sum()), int((prog["matches"] >= 0).sum()),
                                int((ref["matches"] >= 0).sum()))
-    if learned and prog.get("obs") is not None:
+    if frontend.compares_obs and prog.get("obs") is not None:
         ro = ref["obs"].gather(1, p2r[:-1].clamp(min=0)[..., None].expand(-1, -1, 2))
         gap = torch.linalg.vector_norm(prog["obs"] - ro, dim=-1)[same_p]
         out["obs_gap"] = float(gap.mean()) if gap.numel() else 0.0

@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from bench_port.reference import orb, pnp, stereo, superglue, superpoint
+from bench_port.reference import pnp, stereo
 from bench_port.reference.common import SOUND, Camera, Precision, backproject, mm, se3_inverse, se3_matrix
-from bench_port.reference.msgpack import read_checkpoint
 
 
 FRAME_BATCH, PAIR_BATCH = 16, 16  # unique frames and unique pairs a batch
@@ -22,34 +21,26 @@ def _batches(n, size):
     return [(s, min(s + size, n)) for s in range(0, n, size)]
 
 
-def load_learned(path: str, device) -> dict:
-    meta, tree = read_checkpoint(path)
-    sg = tree["superglue"]["params"]
-    n_layers = sum(1 for k in sg if k.startswith("self_"))
-    return dict(meta=meta, sp=superpoint.load_weights(tree["superpoint"]["params"], device),
-                sg=superglue.load_weights(sg, n_layers, device))
-
-
 @torch.no_grad()
-def run(inputs: dict, cfg: dict, prec: Precision = SOUND, pnp_batch: int = 48) -> dict:
+def run(inputs: dict, cfg: dict, frontend, prec: Precision = SOUND, pnp_batch: int = 48) -> dict:
     """The reference's answers for ``inputs`` (unique frames ``left`` and
     ``right`` (U, H, W), ``index`` (M,), draws ``gumbel`` (M-1, n, K) and
-    ``uniform`` (M-1, K), the camera ``K`` and ``baseline``; ``checkpoint``
-    for the learned front end) under the configuration ``cfg``: per unique
-    frame xy, valid, desc, z, z_ok; per virtual pair matches, obs, rel, ok;
-    and the chained poses of frames 1..M-1. PnP runs ``pnp_batch`` virtual
-    pairs at a time."""
+    ``uniform`` (M-1, K), the camera ``K`` and ``baseline``, and what the
+    front end loads from: ``weights`` drawn from the seed or a file under
+    ``root``) under the configuration ``cfg``, the front end's own part by
+    ``frontend``'s reference functions (``frontends/<frontend>.py``): per
+    unique frame xy, valid, desc, z, z_ok; per virtual pair matches, obs,
+    rel, ok; and the chained poses of frames 1..M-1. PnP runs ``pnp_batch``
+    virtual pairs at a time."""
     left, right, index = inputs["left"], inputs["right"], inputs["index"].long()
     dev = left.device
     U, H, W = left.shape
     cam = Camera(inputs["K"], None, dev)
     fx_b = cam.fx * torch.tensor(float(inputs["baseline"]), dtype=torch.float32, device=dev)
-    learned = cfg["frontend"] == "superpoint_superglue"
-    net = load_learned(inputs["checkpoint"], dev) if learned else None
+    net = frontend.reference_load(cfg, inputs, dev)
     feats = []
     for s, e in _batches(U, FRAME_BATCH):
-        f = (superpoint.extract(left[s:e], net["sp"], cfg, prec) if learned
-             else orb.extract(left[s:e], cfg["orb"], prec))
+        f = frontend.reference_extract(left[s:e], net, cfg, prec)
         f["z"], f["z_ok"] = stereo.sparse_depth(left[s:e], right[s:e], f["xy"], fx_b, 1.0, cfg["sparse"], prec)
         feats.append(f)
     fr = {k: torch.cat([f[k] for f in feats]) for k in feats[0]}
@@ -61,8 +52,7 @@ def run(inputs: dict, cfg: dict, prec: Precision = SOUND, pnp_batch: int = 48) -
     m_u, obs_u, val_u, w_u = [], [], [], []
     for s, e in _batches(uniq.shape[0], PAIR_BATCH):
         a, b = take(fr, u0[s:e]), take(fr, u1[s:e])
-        m = (superglue.match(a, b, net["sg"], cfg, (H, W), prec) if learned
-             else orb.match(a, b, cfg["max_match_distance"]))
+        m = frontend.reference_match(a, b, net, cfg, (H, W), prec)
         mask = m >= 0
         idx = torch.where(mask, m, torch.zeros_like(m))
         valid = mask & a["z_ok"] & (a["z"] > cfg["min_depth"]) & (a["z"] < cfg["max_depth"]) & a["valid"]

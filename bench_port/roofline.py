@@ -3,10 +3,11 @@ VO path and of its CUDA kernels, counted by formula from the shapes, and the
 card's published peaks.
 
 Both counts are floors. FLOPs count the algorithm's own work whatever runs
-it: SuperPoint's convolutions, selection, the sparse-stereo SAD,
-SuperGlue's encoder, GNN layers, projection, scores and Sinkhorn,
-refinement's SAD, ORB's detection floor, smoothing and BRIEF tests, Hamming
-matching, and PnP's minimal solves and scoring. Bytes count the traffic
+it: the front end's (``costs`` in ``frontends/<frontend>.py``: SuperPoint's
+convolutions, selection, SuperGlue's encoder, GNN layers, projection,
+scores and Sinkhorn; ORB's detection floor, smoothing and BRIEF tests,
+Hamming matching), the sparse-stereo SAD, refinement's SAD, and PnP's
+minimal solves and scoring. Bytes count the traffic
 every implementation must move: frames read, network weights read once a
 chunk, features, depths, matches and poses written once and read once, and
 refinement's windows. So a share of a peak can never honestly exceed 1.
@@ -105,45 +106,9 @@ DLT6_SOLVE_FLOPS = 2 * 12 ** 3
 P3P_SOLVE_FLOPS, P3P_CANDIDATES = 200, 4
 PNP_SCORE_FLOPS = 30
 PNP_PREEMPTIVE_SUBSET, PNP_PREEMPTIVE_KEEP = 128, 64
-ORB_BLUR_FLOPS = 2 * 7 * 2
-BRIEF_BITS = 256
-ORB_SLOT_BYTES = 8 + 4 + 4 + 4 + 8 * 8 + 1
 DEPTH_SLOT_BYTES = 4 + 1
 POSE_BYTES = 16 * 4
 REFINE_TEMPLATE = 8
-
-
-def superpoint_convs(cfg: dict, H: int, W: int) -> list:
-    """(c_in, c_out, k, h, w) of each SuperPoint convolution on one image."""
-    s = cfg["stem_stride"]
-    c1, c2, c3, c4 = cfg["channels"]
-    h, w = H // s, W // s
-    n_pools = 3 - {1: 0, 2: 1, 4: 2, 8: 3}[s]
-    io = ((s * s, c1), (c1, c1), (c1, c2), (c2, c2), (c2, c3), (c3, c3), (c3, c4), (c4, c4))
-    out = []
-    for blk in range(4):
-        out += [(ci, co, 3, h, w) for ci, co in io[2 * blk:2 * blk + 2]]
-        if blk < n_pools:
-            h, w = h // 2, w // 2
-    return out + [(c4, 256, 3, h, w), (256, 65, 1, h, w), (c4, 256, 3, h, w), (256, cfg["descriptor_dim"], 1, h, w)]
-
-
-def superglue_flops(cfg: dict, K: int) -> int:
-    """One pair through SuperGlue: encoder, 4 layer-applies a layer index,
-    projection, scores, softmax and LayerNorm work, Sinkhorn."""
-    D, L, h = cfg["descriptor_dim"], cfg["gnn_layers"], cfg["num_heads"]
-    dims = (3,) + tuple(cfg["keypoint_encoder_dims"]) + (D,)
-    kenc = 2 * K * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-    apply = 2 * (K + 2 * K) * D * D + 2 * K * D * D + 12 * K * D * D + 4 * K * K * D
-    matrix = 2 * kenc + 4 * L * apply + 2 * 2 * K * D * D + 2 * K * K * D
-    return matrix + 4 * L * (12 * K * K * h + 20 * K * D) + cfg["sinkhorn_iterations"] * 2 * K * K * 6
-
-
-def superglue_weight_bytes(cfg: dict) -> int:
-    D = cfg["descriptor_dim"]
-    dims = (3,) + tuple(cfg["keypoint_encoder_dims"]) + (D,)
-    dense = sum(a * b + b for a, b in zip(dims[:-1], dims[1:])) + D * D + D
-    return 2 * dense + 2 * cfg["gnn_layers"] * gnn_layer_weight_bytes(D) + 4
 
 
 def pnp_flops(n_hypotheses: int, K: int, minimal: str) -> int:
@@ -156,39 +121,16 @@ def pnp_flops(n_hypotheses: int, K: int, minimal: str) -> int:
     return n_hypotheses * solve + scored * PNP_SCORE_FLOPS
 
 
-def orb_level_shapes(H: int, W: int, orb: dict) -> list:
-    sf = orb["scale_factor"]
-    return [(max(int(round(H / sf ** l)), 32), max(int(round(W / sf ** l)), 32)) for l in range(orb["n_levels"])]
-
-
-def _interior(h, w, m):
-    m = max(m, 3)
-    return max(h - 2 * m, 0) * max(w - 2 * m, 0)
-
-
 def frame_pair_costs(H: int, W: int, cfg: dict):
     """(frame FLOPs, frame bytes, pair FLOPs, pair bytes, extract weight
-    bytes, pair weight bytes) of one frame and one pair."""
-    learned = cfg["frontend"] == "superpoint_superglue"
-    if learned:
-        K = cfg["max_keypoints"]
-        frame_flops = sum(2 * ci * co * k * k * h * w for ci, co, k, h, w in superpoint_convs(cfg, H, W))
-        frame_flops += (4 * cfg["nms_radius"] + 4) * H * W
-        pair_flops = superglue_flops(cfg, K)
-        slot = 8 + 4 + 4 * cfg["descriptor_dim"] + 1
-        s8 = 8 * cfg["stem_stride"]
-        ex_w = sum(2 * (ci * co * k * k + co) for ci, co, k, _, _ in superpoint_convs(cfg, s8, s8))
-        pr_w = superglue_weight_bytes(cfg)
-    else:
-        orb = cfg["orb"]
-        K = orb["n_features"]
-        levels = orb_level_shapes(H, W, orb)
-        frame_flops = sum(DETECT_OPS_PER_PIXEL * h * w + DETECT_OPS_PER_INTERIOR_PIXEL * _interior(h, w, orb["edge_margin"])
-                          for h, w in levels)
-        frame_flops += sum(ORB_BLUR_FLOPS * h * w for h, w in levels) + BRIEF_BITS * K
-        pair_flops = K * K * BRIEF_BITS
-        slot = ORB_SLOT_BYTES
-        ex_w = pr_w = 0
+    bytes, pair weight bytes) of one frame and one pair: the front end's
+    part from ``costs`` of the configuration's ``frontends/<frontend>.py``,
+    then sparse stereo, PnP and refinement."""
+    from bench_port import manifest
+
+    fe = manifest.frontend(cfg["frontend"])
+    K = fe.keypoints(cfg)
+    frame_flops, pair_flops, slot, ex_w, pr_w = fe.costs(H, W, cfg)
     sp = cfg["sparse"]
     frame_flops += K * sp["num_disparities"] * sp["window"] ** 2 * 2
     pair_flops += pnp_flops(cfg["n_hypotheses"], K, cfg["pnp_minimal"])

@@ -3,7 +3,8 @@
     python -m bench_port --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up (imports, the kernel library, the inputs from the seed, the front
-end, one warm-up sequence at the cell's shapes) is ``setup_s``. The window
+end with any weights it draws from the seed, one warm-up sequence at the
+cell's shapes) is ``setup_s``. The window
 then runs ``run_stereo_vo_device`` on the whole virtual sequence, back to
 back, each sequence synchronised at its end, until ``--seconds`` have
 passed: ``pairs_per_s`` is the pairs of the sequences completed over the
@@ -47,25 +48,27 @@ def _program_outputs(outs, art, obs, window_poses) -> dict:
                 poses=outs.pose, ok=outs.ok, window_poses=window_poses)
 
 
-def _control_outputs(inputs, cfg, root: str, pnp_batch: int) -> dict:
+def _control_outputs(inputs, cfg, root: str, frontend, pnp_batch: int) -> dict:
     """The control in the program's place: the reference one precision
     below the configuration's, on the same inputs."""
     from bench_port.reference import pipeline
     from bench_port.reference.common import Precision
 
-    c = pipeline.run(_reference_inputs(inputs, cfg, root), cfg, Precision(lower=True), pnp_batch=pnp_batch)
+    c = pipeline.run(_reference_inputs(inputs, root), cfg, frontend, Precision(lower=True), pnp_batch=pnp_batch)
     idx = inputs["index"]
     fr = {k: v[idx] for k, v in c["frames"].items()}
     return dict(xy=fr["xy"], valid=fr["valid"], desc=fr["desc"], z=fr["z"], z_ok=fr["z_ok"], matches=c["matches"],
                 obs=c["obs"], poses=c["poses"], ok=c["ok"], window_poses=[c["poses"]])
 
 
-def _reference_inputs(inputs, cfg, root: str):
+def _reference_inputs(inputs, root: str):
     """What the reference is handed: the rendered frames, the draws, the
-    rig, and the checkpoint's file, which it reads itself."""
+    rig, the weights drawn from the seed (the originals, None where the
+    front end reads a file) and the checkout's root, under which it reads a
+    checkpoint itself."""
     return dict(left=inputs["left_u"], right=inputs["right_u"], index=inputs["index"], gumbel=inputs["gumbel"],
-                uniform=inputs["uniform"], K=inputs["K"], baseline=inputs["baseline"],
-                checkpoint=os.path.join(root, cfg.get("checkpoint", "")))
+                uniform=inputs["uniform"], K=inputs["K"], baseline=inputs["baseline"], weights=inputs["weights"],
+                root=root)
 
 
 def _accuracy(poses, ok, truth) -> str:
@@ -90,8 +93,9 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
 
     t_process = time.time() if t_process is None else t_process
     sync = _sync(device)
-    cfg, tr = cell.config, cell.traffic
-    inputs = gen.make_inputs(tr, cfg, seed, device)
+    cfg, tr, fe = cell.config, cell.traffic, cell.frontend
+    inputs = gen.make_inputs(tr, cfg, seed, device, fe)
+    inputs["weights"] = fe.weights(cfg, cell.root, seed, device)
     sync()
     log(f"# inputs: {tr['n_frames']} frames over {tr['n_unique']} rendered at {tr['width']}x{tr['height']}, "
         f"start step {inputs['start']}, {time.time() - t_process:.2f} s since process start")
@@ -99,12 +103,12 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
     M = tr["n_frames"]
     metrics, dev_extra, breakdown = {}, {}, None
     if program == "control":
-        prog = _control_outputs(inputs, cfg, cell.root, tr["pair_chunk"])
+        prog = _control_outputs(inputs, cfg, cell.root, fe, tr["pair_chunk"])
         attempted, peak = M - 1, 0
     else:
         from bench_port.system import System
 
-        system = System(cfg, tr, inputs, cell.root, device)
+        system = System(cfg, tr, inputs, cell.root, device, fe)
         log(f"# the port and its front end loaded, {time.time() - t_process:.2f} s since process start")
         system.run()
         sync()
@@ -147,7 +151,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
             log(f"# traced {n_tr} sequences: busy {prof['busy_s']:.4f} of {prof['window_s']:.4f} s; phases {clocks}")
             ctx = dict(config=cfg, traffic=tr, device_name=dev_name, peaks=roofline.device_peaks(dev_name),
                        window=dict(seconds=window_s, sequences=n_seq, frames=n_seq * M, pairs=attempted),
-                       trace=prof, phases=clocks, inputs=inputs, roofline=roofline)
+                       trace=prof, phases=clocks, inputs=inputs, roofline=roofline, frontend=fe)
             for m in cell.per_layer:
                 v = manifest.reader(m["name"], cell.root)(ctx)
                 if v is not None:
@@ -171,13 +175,13 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         t_ref = time.time()
-        ref = pipeline.run(_reference_inputs(inputs, cfg, cell.root), cfg, pnp_batch=tr["pair_chunk"])
+        ref = pipeline.run(_reference_inputs(inputs, cell.root), cfg, fe, pnp_batch=tr["pair_chunk"])
         sync()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     log(f"# reference: {_accuracy(ref['poses'], ref['ok'], inputs['truth'])}; {time.time() - t_ref:.2f} s")
     look = {}
-    values = oracle.numbers(prog, ref, inputs["index"], (tr["height"], tr["width"]), cfg, look)
+    values = oracle.numbers(prog, ref, inputs["index"], (tr["height"], tr["width"]), cfg, fe, look)
     log(f"# look: {json.dumps(look)}")
     correct, lines = oracle.verdict(values, cell.limits)
     device_rec = dict(platform="gpu" if torch.device(device).type == "cuda" else "cpu", kind=dev_name, count=1,

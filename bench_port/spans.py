@@ -46,7 +46,7 @@ def stretches(ctx) -> dict | None:
     inputs, n = ctx["inputs"], ctx["traffic"]["trace_sequences"]
     device = inputs["left"].device
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    system = System(ctx["config"], ctx["traffic"], inputs, manifest.ROOT, device)
+    system = System(ctx["config"], ctx["traffic"], inputs, manifest.ROOT, device, ctx["frontend"])
     seconds, t_built = [], time.perf_counter()
     with trace.recording() as a:
         for _ in range(n):

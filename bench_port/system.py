@@ -4,7 +4,6 @@ from a configuration file, and the calls the harness wraps around it."""
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 
 import numpy as np
@@ -33,15 +32,19 @@ def stereo_config(cfg: dict):
 
 
 class System:
-    """The port's runner over one cell's inputs. :meth:`run` runs the whole
+    """The port's runner over one cell's inputs, its front end built by
+    ``frontend.program`` (the configuration's ``frontends/<frontend>.py``
+    where not given), handed a copy of any weights drawn from the seed
+    (``inputs["weights"]``). :meth:`run` runs the whole
     virtual sequence once and returns (StereoStepOut, StereoArtifacts, the
     refined observations of each pair chunk, or None where the runner did
     not call ``pair_from_slab``)."""
 
-    def __init__(self, cfg: dict, traffic: dict, inputs: dict, root: str, device):
+    def __init__(self, cfg: dict, traffic: dict, inputs: dict, root: str, device, frontend=None):
         from forest_slam_tpu_torch.core.camera import PinholeCamera, StereoRig
-        from forest_slam_tpu_torch.frontend.base import learned_frontend, orb_frontend
         from forest_slam_tpu_torch.pipelines import stereo
+
+        from bench_port import manifest
 
         self.stereo = stereo
         self.cfg = stereo_config(cfg)
@@ -50,20 +53,11 @@ class System:
         T = np.eye(4, dtype=np.float32)
         T[0, 3] = inputs["baseline"]
         self.rig = StereoRig(left=cam, right=cam, T_left_right=torch.as_tensor(T, device=device))
-        if cfg["frontend"] == "superpoint_superglue":
-            from forest_slam_tpu_torch.frontend.weights import load_learned_frontend
-
-            fe = load_learned_frontend(os.path.join(root, cfg["checkpoint"]), (H, W), cfg["max_keypoints"],
-                                       device=device)
-            got = dict(stem_stride=fe.cfg.superpoint.stem_stride, gnn_layers=fe.cfg.superglue.gnn_layers,
-                       sinkhorn_iterations=fe.cfg.superglue.sinkhorn_iterations,
-                       num_heads=fe.cfg.superglue.num_heads, descriptor_dim=fe.cfg.superglue.descriptor_dim)
-            wrong = {k: (v, cfg[k]) for k, v in got.items() if v != cfg[k]}
-            if wrong:
-                raise ValueError(f"the checkpoint does not run the configuration: {wrong} (loaded, configured)")
-            self.frontend = learned_frontend(fe)
-        else:
-            self.frontend = orb_frontend(self.cfg.orb, self.cfg.max_match_distance)
+        if frontend is None:
+            frontend = manifest.frontend(cfg["frontend"], root)
+        drawn = inputs.get("weights")
+        handed = inputs if drawn is None else dict(inputs, weights={k: v.clone() for k, v in drawn.items()})
+        self.frontend = frontend.program(cfg, self.cfg, handed, root, device)
         self.inputs = inputs
         self.chunks = (traffic["frame_chunk"], traffic["pair_chunk"])
         self._obs = None

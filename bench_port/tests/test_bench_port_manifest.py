@@ -4,6 +4,7 @@ cell needs found by its name."""
 import json
 import os
 import re
+import shutil
 
 import pytest
 
@@ -80,3 +81,19 @@ def test_every_file_is_found_by_name(man):
         assert c["file"].startswith(tuple(p + "/" for p in man["paths"]))
     budget = 2 + 14 * 24
     assert budget * (man["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
+
+
+@pytest.mark.parametrize("key,value,named", (("pnp_minimal", "p3p", "pnp_minimal"),
+                                             ("refine_scales", [1.0, 1.7], "refine_scales"),
+                                             ("frontend", "no_such_matcher", "frontends/no_such_matcher.py")))
+def test_load_cell_refuses_what_the_reference_does_not_compute(key, value, named, tmp_path):
+    """A setting the reference does not compute, or a front end with no
+    file, is refused when the cell is loaded, naming the key or the file."""
+    shutil.copytree(manifest.HERE, tmp_path / "bench_port", ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(os.path.join(manifest.ROOT, "BENCHMARK.json"), tmp_path / "BENCHMARK.json")
+    path = tmp_path / "bench_port" / "configs" / "sp_flagship.json"
+    cfg = json.loads(path.read_text())
+    path.write_text(json.dumps(dict(cfg, **{key: value})))
+    with pytest.raises(ValueError, match=re.escape(named)):
+        manifest.load_cell("sp_flagship.seq962", str(tmp_path))
+    assert manifest.load_cell("orb512.seq962_c128", str(tmp_path)).config["frontend"] == "orb"

@@ -18,6 +18,19 @@ def test_sequence_costs_match_the_recorded_counts(config, tflop, gb):
     assert round(c.bytes / 1e9, 3) == gb
 
 
+@pytest.mark.parametrize("name,flops,nbytes,budget", (("sp_flagship.seq962", 112213364066304, 9555030418, 1024),
+                                                       ("orb512.seq962_c128", 145307859410, 4530271488, 512)))
+def test_sequence_costs_at_each_cells_traffic_are_pinned(name, flops, nbytes, budget):
+    """The counts under mfu and the keypoint budget that sizes the PnP
+    draws, to the digit, from the cell's front-end file."""
+    cell = manifest.load_cell(name)
+    tr = cell.traffic
+    c = roofline.sequence_costs(tr["height"], tr["width"], cell.config, tr["n_frames"], tr["frame_chunk"],
+                                tr["pair_chunk"])
+    assert (c.flops, c.bytes) == (flops, nbytes)
+    assert cell.frontend.keypoints(cell.config) == budget
+
+
 def test_kernel_bounds_and_peaks():
     c = roofline.gnn_layer_cost(96, 1024, 1024, 256, roofline.gnn_layer_weight_bytes(256))
     peaks = roofline.device_peaks("NVIDIA H100 80GB HBM3")

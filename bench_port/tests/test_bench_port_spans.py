@@ -15,7 +15,7 @@ READERS = ("frame_enqueue_ms", "pair_enqueue_ms", "frame_idle_frac", "pair_idle_
 
 def _ctx(cell, device):
     inputs = traffic.make_inputs(cell.traffic, cell.config, 3, device)
-    return dict(config=cell.config, traffic=cell.traffic, inputs=inputs,
+    return dict(config=cell.config, traffic=cell.traffic, inputs=inputs, frontend=cell.frontend,
                 window=dict(seconds=1.0, sequences=1, frames=cell.traffic["n_frames"],
                             pairs=cell.traffic["n_frames"] - 1))
 

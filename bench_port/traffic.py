@@ -6,24 +6,23 @@ frames it ping-pongs over, ``height`` x ``width``, metres a frame
 (``speed``), the stereo ``baseline``, ``texture_px``, the trajectory's start
 drawn in ``[0, start_max)`` steps, and the runner's ``frame_chunk`` and
 ``pair_chunk``. The seed draws the textures, the start and the PnP draws
-(Gumbel noise (M-1, n_hypotheses, K) and uniforms (M-1, K)) from one
-``torch.Generator`` on the device, so one seed gives the same inputs."""
+(Gumbel noise (M-1, n_hypotheses, K) and uniforms (M-1, K), K the front
+end's keypoint budget) from one ``torch.Generator`` on the device, so one
+seed gives the same inputs."""
 
 from __future__ import annotations
 
 import torch
 
-from bench_port import render
+from bench_port import manifest, render
 
 
-def keypoints(cfg: dict) -> int:
-    return cfg["max_keypoints"] if cfg["frontend"] == "superpoint_superglue" else cfg["orb"]["n_features"]
-
-
-def make_inputs(traffic: dict, cfg: dict, seed: int, device) -> dict:
+def make_inputs(traffic: dict, cfg: dict, seed: int, device, frontend=None) -> dict:
     """Unique frames ``left_u``/``right_u`` (U, H, W), the virtual stacks
     ``left``/``right`` (M, H, W), ``index`` (M,), ``truth`` (M, 4, 4)
-    T_world_cam, ``gumbel``, ``uniform``, the rig's ``K`` and ``baseline``."""
+    T_world_cam, ``gumbel``, ``uniform``, the rig's ``K`` and ``baseline``.
+    The PnP draws are sized by the keypoint budget of ``frontend`` (the
+    configuration's front-end module, found by name where not given)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     H, W = traffic["height"], traffic["width"]
@@ -34,7 +33,9 @@ def make_inputs(traffic: dict, cfg: dict, seed: int, device) -> dict:
     left_u, right_u = render.render_stereo(tex, Ts, K, traffic["baseline"], H, W)
     index = torch.as_tensor(render.frame_index(traffic["n_frames"], traffic["n_unique"]), dtype=torch.long,
                             device=device)
-    M, n_kp = index.shape[0], keypoints(cfg)
+    if frontend is None:
+        frontend = manifest.frontend(cfg["frontend"])
+    M, n_kp = index.shape[0], frontend.keypoints(cfg)
     gumbel = torch.rand((M - 1, cfg["n_hypotheses"], n_kp), generator=gen, device=device)
     gumbel.clamp_(min=torch.finfo(torch.float32).tiny).log_().neg_().log_().neg_()
     uniform = 1e-9 + (1.0 - 1e-9) * torch.rand((M - 1, n_kp), generator=gen, device=device)
