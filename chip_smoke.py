@@ -26,7 +26,12 @@ Phases, each printing one line with its elapsed seconds:
    ``scaled_dot_product_attention`` as a yardstick, and at a ragged K=150,
    S=130; the GNN layer kernel at 16 sequences of 1024 x 256, at the lowres
    gate's 48 of 512 x 256 and at a ragged K=150, S=130; the ragged shapes
-   with one sequence whose sources are all masked; PnP-RANSAC's
+   with one sequence whose sources are all masked; and LightGlue's self
+   block (rotary q/k, GELU) and cross block (q and k from one projection,
+   GELU), LayerNorm eps 1e-5, at the ``sp_lightglue.seq962`` cell's 96
+   sequences of 2048 with full-strength weights, each beside an fp8 control
+   that must miss its tolerance, its bound from the front end's
+   ``layer_cost``; PnP-RANSAC's
    refine-and-select kernel at each shape of ``PNP_SHAPES`` (the learned
    chunk's 48 pairs of K=1024, the ORB cell's 192 and the clip's 8 of 512,
    the wide-baseline gate's 15 with P3P, loop verification's 16, the
@@ -42,7 +47,11 @@ Phases, each printing one line with its elapsed seconds:
 5. learned path: loads the flagship checkpoint and runs stereo VO (K=1024,
    refine radius 12, 1024 DLT-6 hypotheses) on the same clip through the
    kernels, counting their launches (``pnp_refine`` once a pair batch);
-   then the same frames through the plain versions for comparison;
+   then the same frames through the plain versions for comparison; then
+   SuperPoint at K=2048 + LightGlue (9 layers, the ``sp_lightglue``
+   configuration's weight draw) on the same clip, held as the learned path,
+   ``gnn_layer`` launched 18 times a pair batch and ``sinkhorn_decode``
+   never;
 6. learned path with the unfused GNN (``bench.py --sg-gnn xla``): the same
    run with every GNN layer op by op around the attention kernel, which
    must launch while the fused layer kernel does not; then the plain
@@ -374,6 +383,157 @@ def gnn_bound(ws, N, K_, S, D=256):
     return bound(nbytes, ops, BF16_OPS)
 
 
+# LightGlue (the sp_lightglue.seq962 cell): a pair chunk of 48 pairs of 2048
+# keypoints, both sets of a pair in one fused-layer launch (96 sequences), 9
+# layers of a self and a cross block; the gaps a block's kernel may have to
+# its plain version, over the plain output's largest magnitude
+# (test_torch_cuda.py::test_lightglue_layer_variants_kernel gives the reason)
+LG_PAIRS, LG_K, LG_LAYERS = BENCH_PAIRS, 2048, 9
+LG_LAYER_MAX, LG_LAYER_MEAN = 2 ** -5, 2 ** -10
+LG_SEED = 2 ** 31 + 29
+
+
+def lightglue_config(n_layers=LG_LAYERS, residual_scale=None) -> dict:
+    """The sp_lightglue configuration (bench_port/configs/sp_lightglue.json)
+    at ``n_layers``, and at ``residual_scale`` where given (1: every FFN at
+    full strength; the configuration's own keeps the clip tracking)."""
+    with open(os.path.join(ROOT, "bench_port", "configs", "sp_lightglue.json")) as f:
+        cfg = json.load(f)
+    assumed = cfg["assumed"] if residual_scale is None else dict(cfg["assumed"], residual_scale=residual_scale)
+    return dict(cfg, lightglue_layers=n_layers, assumed=assumed)
+
+
+def lightglue_weights(cfg: dict, dev, seed=LG_SEED) -> dict:
+    """The benchmark's LightGlue weight draw (bench_port/frontends/
+    superpoint_lightglue.py:weights) for ``cfg`` at ``seed``."""
+    from bench_port import manifest
+
+    return manifest.frontend("superpoint_lightglue").weights(cfg, ROOT, seed, dev)
+
+
+def lightglue_inputs(dev, n_layers: int, residual_scale: float = 1.0, seed: int = LG_SEED):
+    """(configuration, state dict, xy0, d0, v0, xy1, d1, v1): the cell's
+    configuration at ``n_layers`` and ``residual_scale``, its weight draw,
+    and 48 pairs of 2048 keypoints at 960x600 whose second set is the first
+    permuted, moved and with noisy descriptors, 1700-2048 of them valid."""
+    cfg = lightglue_config(n_layers, residual_scale)
+    sd = lightglue_weights(cfg, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P, K_, D = LG_PAIRS, LG_K, cfg["descriptor_dim"]
+    xy0 = torch.rand((P, K_, 2), generator=g, device=dev) * torch.tensor([float(W), float(H)], device=dev)
+    d0 = torch.nn.functional.normalize(torch.randn((P, K_, D), generator=g, device=dev), dim=-1)
+    perm = torch.argsort(torch.rand((P, K_), generator=g, device=dev), dim=1)
+    xy1 = xy0.gather(1, perm[..., None].expand(-1, -1, 2)) + 2.0
+    d1 = torch.nn.functional.normalize(d0.gather(1, perm[..., None].expand(-1, -1, D))
+                                       + 0.03 * torch.randn((P, K_, D), generator=g, device=dev), dim=-1)
+    n = torch.randint(1700, K_ + 1, (2, P, 1), generator=g, device=dev)
+    slots = torch.arange(K_, device=dev)
+    return cfg, sd, xy0, d0, slots < n[0], xy1, d1, slots < n[1]
+
+
+def fp8(t):
+    """t rounded to float8 e4m3 with one scale a tensor, in t's dtype: the
+    control one precision below bf16."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(), min=1e-30) / 448.0
+    return ((tf / scale).to(torch.float8_e4m3fn).float() * scale).to(t.dtype)
+
+
+def lightglue_layer_case(dev, kind: str) -> dict:
+    """Layer 0's ``kind`` block of LightGlue ("self": rotary q/k, GELU;
+    "cross": q and k both from ``to_qk``, GELU; LayerNorm eps 1e-5) on the
+    cell's 96 sequences of 2048 tokens with full-strength weights: the
+    kernel's and an fp8 control's (largest, mean) gap to the plain version
+    over the largest magnitude of its output on valid tokens, whether the
+    kernel's output is finite, and the kernel's and plain version's calls."""
+    from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
+    from forest_slam_tpu_torch.frontend.lightglue import LN_EPS, LightGlue, LightGlueConfig
+
+    cfg, sd, xy0, d0, v0, xy1, d1, v1 = lightglue_inputs(dev, 1)
+    lg = LightGlue(LightGlueConfig(n_layers=1), sd, device=dev)
+    x0, r0 = lg.encode(xy0, d0, (H, W))
+    x1, r1 = lg.encode(xy1, d1, (H, W))
+    x = torch.cat([x0, x1]).contiguous()
+    valid = torch.cat([v0, v1])
+    if kind == "self":
+        args, ws = (x, x, valid), lg.self_w[0]
+        kw = dict(rope=torch.cat([r0, r1]).contiguous(), ln_eps=LN_EPS, gelu=True)
+    else:
+        args, ws = (x, torch.cat([x1, x0]).contiguous(), torch.cat([v1, v0])), lg.cross_w[0]
+        kw = dict(ln_eps=LN_EPS, gelu=True)
+    heads = cfg["num_heads"]
+    with torch.no_grad():
+        got = gnn_layer(*args, ws, heads, **kw).float()
+        ref = gnn_layer_plain(*args, ws, heads, **kw).float()
+        control = gnn_layer_plain(fp8(args[0]), fp8(args[1]), args[2], tuple(
+            fp8(w) if w.dtype == torch.bfloat16 else w for w in ws), heads, **kw).float()
+    scale = float(ref[valid].abs().max())
+    gaps = [((a - ref)[valid].abs().max().item() / scale, (a - ref)[valid].abs().mean().item() / scale)
+            for a in (got, control)]
+    finite = bool(torch.isfinite(got).all().item())
+    del got, ref, control
+    return dict(kernel=gaps[0], control=gaps[1], finite=finite,
+                call=lambda: gnn_layer(*args, ws, heads, **kw), plain=lambda: gnn_layer_plain(*args, ws, heads, **kw))
+
+
+def check_lightglue_layers(dev) -> list:
+    """The fused layer's LightGlue blocks at the cell's shape, each held to
+    LG_LAYER_MAX and LG_LAYER_MEAN while its fp8 control misses the mean;
+    ms, plain ms and the bound of the front end's ``layer_cost`` (S once a
+    cross block)."""
+    from bench_port import manifest
+
+    layer_cost = manifest.frontend("superpoint_lightglue").layer_cost
+    D = 256
+    out = []
+    for kind in ("self", "cross"):
+        c = lightglue_layer_case(dev, kind)
+        (kmax, kmean), (cmax, cmean) = c["kernel"], c["control"]
+        cost = layer_cost(kind, LG_PAIRS, LG_K, D, HEADS)
+        b_ms, b_by = bound(cost.bytes, cost.flops, BF16_OPS)
+        with torch.no_grad():
+            ms, plain_ms = time_ms(c["call"]), time_ms(c["plain"], reps=2)
+        out.append(dict(kind=kind, shape=[2 * LG_PAIRS, LG_K, LG_K, D], max_gap=kmax, mean_gap=kmean,
+                        control_max_gap=cmax, control_mean_gap=cmean,
+                        ok=c["finite"] and kmax <= LG_LAYER_MAX and kmean <= LG_LAYER_MEAN and cmean > LG_LAYER_MEAN,
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+def lightglue_path(dev, wrappers, launches_by_path, report, run_with, n_pairs) -> list:
+    """The clip through ``run_stereo_vo_device`` with SuperPoint (the
+    flagship checkpoint at K=2048) + LightGlue (the configuration's weight
+    draw, 9 layers): held to the learned path's tracking and ATE, ``select``,
+    ``sparse_cost``, ``refine_cost`` and ``pnp_refine`` (once a pair chunk)
+    launched, ``gnn_layer`` 2 x 9 times a pair chunk and ``sinkhorn_decode``
+    never."""
+    from forest_slam_tpu_torch.frontend.base import lightglue_frontend
+    from forest_slam_tpu_torch.frontend.lightglue import LightGlue, LightGlueConfig
+    from forest_slam_tpu_torch.frontend.weights import FLAGSHIP_PATH, load_learned_frontend
+
+    cfg = lightglue_config()
+    sp = load_learned_frontend(FLAGSHIP_PATH, (H, W), LG_K, device=dev)
+    lg = LightGlue(LightGlueConfig(n_layers=LG_LAYERS), lightglue_weights(cfg, dev), device=dev)
+    run = run_with(lightglue_frontend(sp, lg))
+    _, _, t_cold = drive_path(wrappers, run)
+    log(f"LightGlue path (K={LG_K}, {LG_LAYERS} layers, residual_scale {cfg['assumed']['residual_scale']}) warm-up "
+        f"run: {t_cold:.2f} s")
+    out, launches, t_run = drive_path(wrappers, run)
+    launches_by_path["lightglue"] = launches
+    tracked, err = report("LightGlue", out, t_run, launches, shares=False)
+    failures = path_failures("LightGlue", out, tracked, err, launches,
+                             ("select", "sparse_cost", "gnn_layer", "refine_cost", "pnp_refine"), n_pairs=n_pairs,
+                             idle_kernels=("sinkhorn_decode",))
+    failures += pnp_launch_failures("LightGlue", launches, n_pairs)
+    chunks = -(-n_pairs // PAIR_BATCH)
+    if launches["gnn_layer"] != 2 * LG_LAYERS * chunks:
+        failures.append(f"LightGlue: {launches['gnn_layer']} gnn_layer launches, not {2 * LG_LAYERS} a pair chunk "
+                        f"({2 * LG_LAYERS * chunks})")
+    return failures
+
+
 def check_gnn(dev, gen, fe):
     from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, gnn_layer_plain
 
@@ -388,12 +548,15 @@ def check_gnn(dev, gen, fe):
                           max_abs_ref=top, ok=o, ms=time_ms(lambda: gnn_layer(xe, se, me_, ws, heads)),
                           bound_ms=gnn_bound(ws, n_, k_, s_)[0]))
         ok &= o
+    lightglue = check_lightglue_layers(dev)
+    ok &= all(o["ok"] for o in lightglue)
     b_ms, b_by = gnn_bound(ws, N, K, K)
     return dict(
         name="gnn_layer", source="forest_slam_tpu_torch/csrc/gnn_layer.cu",
         replaces="forest_slam_tpu/frontend/pallas_gnn.py:214",
-        tolerance="max <= 0.05 * max|ref|, mean <= 2e-3 * max|ref|",
-        max_abs_err=err, mean_abs_err=mean_err, ok=ok, other_shapes=extra,
+        tolerance="max <= 0.05 * max|ref|, mean <= 2e-3 * max|ref|; LightGlue's blocks max <= 2^-5, mean <= 2^-10 "
+                  "of max|ref|, the fp8 control's mean above",
+        max_abs_err=err, mean_abs_err=mean_err, ok=ok, other_shapes=extra, lightglue=lightglue,
         ms=time_ms(lambda: gnn_layer(x, src, mask, ws, heads)),
         plain_ms=time_ms(lambda: gnn_layer_plain(x, src, mask, ws, heads)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -2420,6 +2583,12 @@ def main() -> int:
         log(f"  gnn_layer at (N, K, S, D) = {tuple(o['shape'])}{', one sequence fully masked' if o['all_masked_sequence'] else ''}: "
             f"max error {o['max_abs_err']:.6g} of {o['max_abs_ref']:.4g}, mean {o['mean_abs_err']:.3g}: "
             f"{'PASS' if o['ok'] else 'FAIL'}; {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms")
+    for o in gnn["lightglue"]:
+        log(f"  gnn_layer, LightGlue's {o['kind']} block at (N, K, S, D) = {tuple(o['shape'])}"
+            f"{' (rotary q/k, GELU)' if o['kind'] == 'self' else ' (q and k from to_qk, GELU)'}, eps 1e-5: largest gap "
+            f"{o['max_gap']:.4g}, mean {o['mean_gap']:.3g} of max|plain| (fp8 control {o['control_max_gap']:.4g}, "
+            f"{o['control_mean_gap']:.3g}): {'PASS' if o['ok'] else 'FAIL'}; {o['ms']:.4f} ms vs plain "
+            f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms by {o['bound_by']} (layer_cost, S once)")
     for name, o in by_name["pnp_refine"]["shapes"].items():
         P, N, minimal, identity, hyps, camera = o["shape"]
         log(f"  pnp_refine, {name}: {P} pairs of {N} points, the {PNP_STARTS} best of {hyps} {minimal} hypotheses"
@@ -2513,6 +2682,11 @@ def main() -> int:
     plain_out, _, t_plain = drive_path(wrappers, run_learned(plain_cfg, learned_frontend(plain_fe)))
     compare("learned", out, plain_out, t_plain)
     del plain_fe
+
+    # SuperPoint + LightGlue (the sp_lightglue.seq962 cell's front end) at K=2048 on the same clip: the
+    # configuration's weight draw, both blocks of every layer one fused-layer launch, no Sinkhorn
+    failures += lightglue_path(dev, wrappers, launches_by_path, report, lambda f: run_learned(cfg, f), n_pairs)
+    torch.cuda.empty_cache()
 
     # learned path with the unfused GNN: bench.py --sg-gnn xla
     fe_x = load_learned_frontend(FLAGSHIP_PATH, (H, W), K, device=dev,

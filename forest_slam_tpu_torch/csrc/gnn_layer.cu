@@ -1,4 +1,4 @@
-// One whole SuperGlue GNN layer for inference (bf16 activations).
+// One whole SuperGlue or LightGlue GNN layer for inference (bf16 activations).
 //
 // Replaces the TPU kernel frontend/pallas_gnn.py:_layer_kernel (wrapper
 // fused_gnn_layer). For x (N, K, D), src (N, S, D), a source mask and the
@@ -9,10 +9,26 @@
 //   o_h     = bf16(p @ v_h)
 //   merged  = bf16(bf16(sum_h o_h @ Wm_h) + bm)
 //   y       = bf16(bf16(x @ W0a + merged @ W0b) + b0)
-//   yr      = bf16(relu(LayerNorm_f32(y) * scale + bias))  eps 1e-6
+//   yr      = bf16(relu(LayerNorm_f32(y) * scale + bias))  eps 1e-6 (SuperGlue)
 //   out     = bf16(x + bf16(bf16(yr @ W1) + b1))
 //
 // casting to bf16 exactly where the TPU kernel does (pallas_gnn.py:103-152).
+//
+// Two compile-time variants serve LightGlue's layers (frontend/lightglue.py),
+// which have the same shape: a rotary q/k, applied in the projection GEMM's
+// epilogue to the bf16 q and k of a self layer (each thread's accumulator
+// already holds the column pair (2i, 2i+1) that one rotation mixes):
+//
+//   q[2i]   = bf16(q[2i] c_i - q[2i+1] s_i)    float32 products and sum,
+//   q[2i+1] = bf16(q[2i+1] c_i + q[2i] s_i)    no FMA (the plain version's
+//                                               rounding)
+//
+// with (c_i, s_i) = (cos u_i, sin u_i) of the token, read from a float32
+// table (tokens, 32, 2); and GELU (erf) in place of ReLU after the
+// LayerNorm. The LayerNorm's eps is an argument (SuperGlue 1e-6, Flax's
+// default; LightGlue 1e-5, torch's). SuperGlue's layer takes neither
+// variant and runs the arithmetic it ran before they existed. LightGlue's
+// cross layer is the plain layer with q and k from one projection.
 //
 // What bounds it on the H100: operations. A layer call at N = 16 sequences
 // of K = S = 1024, D = 256 does 21.5 GFLOP of projections and MLP and 17.2
@@ -25,7 +41,7 @@
 //   2. attention: the shared core of attention_core.cuh on the (N*K, D)
 //      projections, token stride D, head h at column h*64,
 //   3. merge projection, 4. MLP0 over [x, merged] as two K-ranges of one
-//      GEMM (no concat), 5. LayerNorm + ReLU (one warp per row; it moves
+//      GEMM (no concat), 5. LayerNorm + ReLU or GELU (one warp per row; it moves
 //      2 x 16 MB at the main shape, near the memory rate and a few percent
 //      of the layer, so it stays its own launch: fusing it into MLP0's
 //      epilogue would need whole 512-wide rows in one block), 6. MLP1 +
@@ -51,8 +67,6 @@ using attn_core::ldmatrix_x4;
 using attn_core::ldmatrix_x4_trans;
 using attn_core::mma_bf16;
 
-constexpr float kLnEps = 1e-6f;
-
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -65,7 +79,9 @@ __device__ __forceinline__ float round_bf(float v) {
 // where column n of a weight lies at w[(n / 64) * head_stride + k * ldw +
 // n % 64]: head_stride = kpart * 64, ldw = 64 for a head-split (h, kpart,
 // 64) weight, head_stride = 64, ldw = N for a row-major one; and
-//   epilogue(acc) = bf16(res + bf16(bf16(acc) + bias))   (res optional).
+//   epilogue(acc) = bf16(res + bf16(bf16(acc) + bias))   (res optional),
+// in gemm_kernel<true> rotated first where rope is set (a (m, 32, 2)
+// float32 table of (cos, sin) by row and column pair; N a multiple of 64).
 struct Gemm {
   const bf16* a1;
   const bf16* a2;
@@ -78,6 +94,7 @@ struct Gemm {
   const bf16* res;
   bf16* c;
   int m, n, kd;
+  const float* rope;  // read by gemm_kernel<true> only; nullptr: no rotation
 };
 
 struct GemmBatch {
@@ -93,6 +110,7 @@ constexpr int kAStage = BM * LDA, kWStage = BK * LDW;
 constexpr int kGemmSmem = 2 * GSTAGES * (kAStage + kWStage);  // 56,832 bytes
 
 // grid (ceil(max N / BN), ceil(max M / BM), number of GEMMs)
+template <bool kRope>
 __global__ void __launch_bounds__(GTHREADS) gemm_kernel(const __grid_constant__ GemmBatch batch) {
   const Gemm& p = batch.g[blockIdx.z];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -181,6 +199,15 @@ __global__ void __launch_bounds__(GTHREADS) gemm_kernel(const __grid_constant__ 
         const int col = n0 + wn + 8 * j + 2 * t4;
         float v0 = round_bf(round_bf(acc[mt][j][2 * r]) + bias[j].x);
         float v1 = round_bf(round_bf(acc[mt][j][2 * r + 1]) + bias[j].y);
+        if constexpr (kRope) {
+          if (p.rope) {
+            const float2 cs = *reinterpret_cast<const float2*>(p.rope + (size_t)row * 64 + (col & 63));
+            const float r0 = __fadd_rn(__fmul_rn(v0, cs.x), __fmul_rn(-v1, cs.y));
+            const float r1 = __fadd_rn(__fmul_rn(v1, cs.x), __fmul_rn(v0, cs.y));
+            v0 = r0;
+            v1 = r1;
+          }
+        }
         const size_t at = (size_t)row * p.n + col;
         if (p.res) {
           v0 += to_f(p.res[at]);
@@ -191,18 +218,19 @@ __global__ void __launch_bounds__(GTHREADS) gemm_kernel(const __grid_constant__ 
     }
 }
 
-attn_core::SmemReservation gemm_smem, attention_smem;
+attn_core::SmemReservation gemm_smem, gemm_rope_smem, attention_smem;
 
+template <bool kRope>
 int run_gemms(const GemmBatch& batch, int count, cudaStream_t stream) {
   int n = 0, m = 0;
   for (int i = 0; i < count; ++i) {
     n = batch.g[i].n > n ? batch.g[i].n : n;
     m = batch.g[i].m > m ? batch.g[i].m : m;
   }
-  const cudaError_t err = gemm_smem.allow((const void*)gemm_kernel, kGemmSmem);
+  const cudaError_t err = (kRope ? gemm_rope_smem : gemm_smem).allow((const void*)gemm_kernel<kRope>, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, count);
-  gemm_kernel<<<grid, GTHREADS, kGemmSmem, stream>>>(batch);
+  gemm_kernel<kRope><<<grid, GTHREADS, kGemmSmem, stream>>>(batch);
   return (int)cudaGetLastError();
 }
 
@@ -219,12 +247,12 @@ gnn_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
                     blockIdx.x * attn_core::QT, smem);
 }
 
-// ----------------------------------------------------- LayerNorm + ReLU ---
+// ------------------------------------------- LayerNorm + ReLU or GELU ---
 // one warp per row of width C; f32 statistics
-__global__ void layernorm_relu_kernel(const bf16* __restrict__ y,
-                                      const float* __restrict__ gamma,
-                                      const float* __restrict__ beta,
-                                      bf16* __restrict__ out, int rows, int C) {
+template <bool kGelu>
+__device__ __forceinline__ void layernorm_act(const bf16* __restrict__ y, const float* __restrict__ gamma,
+                                              const float* __restrict__ beta, bf16* __restrict__ out, int rows,
+                                              int C, float eps) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -239,12 +267,29 @@ __global__ void layernorm_relu_kernel(const bf16* __restrict__ y,
     ss += d * d;
   }
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const float inv = 1.f / sqrtf(ss / C + kLnEps);
+  const float inv = 1.f / sqrtf(ss / C + eps);
   bf16* orow = out + (size_t)row * C;
   for (int c = lane; c < C; c += 32) {
     const float yn = (to_f(yr[c]) - mu) * inv * gamma[c] + beta[c];
-    orow[c] = __float2bfloat16(fmaxf(yn, 0.f));
+    if constexpr (kGelu) {
+      // torch's exact GELU, in its order: x * 0.5 * (1 + erf(x / sqrt 2))
+      orow[c] = __float2bfloat16(yn * 0.5f * (1.f + erff(yn * 0.70710678118654752f)));
+    } else {
+      orow[c] = __float2bfloat16(fmaxf(yn, 0.f));
+    }
   }
+}
+
+__global__ void layernorm_relu_kernel(const bf16* __restrict__ y, const float* __restrict__ gamma,
+                                      const float* __restrict__ beta, bf16* __restrict__ out, int rows, int C,
+                                      float eps) {
+  layernorm_act<false>(y, gamma, beta, out, rows, C, eps);
+}
+
+__global__ void layernorm_gelu_kernel(const bf16* __restrict__ y, const float* __restrict__ gamma,
+                                      const float* __restrict__ beta, bf16* __restrict__ out, int rows, int C,
+                                      float eps) {
+  layernorm_act<true>(y, gamma, beta, out, rows, C, eps);
 }
 
 }  // namespace
@@ -254,7 +299,10 @@ __global__ void layernorm_relu_kernel(const bf16* __restrict__ y,
 // bq/bk/bv (h*64), wm (h*64, D), bm (D), w0a/w0b (D, 2D), b0 (2D),
 // ln_scale/ln_bias (2D) f32, w1 (2D, D), b1 (D). Scratch: qs (N*K, D),
 // ks/vs (N*S, D), os/ms (N*K, D), ys/yr (N*K, 2D), all bf16. out (N, K, D)
-// bf16. Every array contiguous and 16-byte aligned.
+// bf16. Every array contiguous and 16-byte aligned. rope: nullptr, or a
+// (N*K, 32, 2) float32 table of (cos, sin) per token that rotates q and k
+// (a self layer: src holds x's tokens, S == K); gelu: GELU after the
+// LayerNorm in place of ReLU; ln_eps: the LayerNorm's eps.
 extern "C" int fs_gnn_layer(const bf16* x, const bf16* src, const unsigned char* mask,
                             const bf16* wq, const bf16* bq, const bf16* wk,
                             const bf16* bk, const bf16* wv, const bf16* bv,
@@ -264,17 +312,19 @@ extern "C" int fs_gnn_layer(const bf16* x, const bf16* src, const unsigned char*
                             const bf16* w1, const bf16* b1, bf16* qs,
                             bf16* ks, bf16* vs, bf16* os, bf16* ms, bf16* ys,
                             bf16* yr, bf16* out, int N, int K, int S, int D,
-                            int heads, cudaStream_t stream) {
+                            int heads, const float* rope, float ln_eps, int gelu,
+                            cudaStream_t stream) {
   if (N == 0 || K == 0) return 0;
   const int dh = D / heads;
   if (S <= 0 || dh != attn_core::DH || dh * heads != D) return (int)cudaErrorInvalidValue;
+  if (rope && S != K) return (int)cudaErrorInvalidValue;
   const int MK = N * K, MS = N * S;
   const long long split = (long long)D * dh;  // head stride of wq, wk, wv
   int err;
-  GemmBatch qkv{{Gemm{x, nullptr, D, wq, nullptr, split, dh, bq, nullptr, qs, MK, D, D},
-                 Gemm{src, nullptr, D, wk, nullptr, split, dh, bk, nullptr, ks, MS, D, D},
+  GemmBatch qkv{{Gemm{x, nullptr, D, wq, nullptr, split, dh, bq, nullptr, qs, MK, D, D, rope},
+                 Gemm{src, nullptr, D, wk, nullptr, split, dh, bk, nullptr, ks, MS, D, D, rope},
                  Gemm{src, nullptr, D, wv, nullptr, split, dh, bv, nullptr, vs, MS, D, D}}};
-  if ((err = run_gemms(qkv, 3, stream))) return err;
+  if ((err = rope ? run_gemms<true>(qkv, 3, stream) : run_gemms<false>(qkv, 3, stream))) return err;
 
   const int smem = attn_core::smem_bytes(S);
   if ((err = (int)attention_smem.allow((const void*)gnn_attention_kernel, smem))) return err;
@@ -284,13 +334,16 @@ extern "C" int fs_gnn_layer(const bf16* x, const bf16* src, const unsigned char*
   if ((err = (int)cudaGetLastError())) return err;
 
   GemmBatch merge{{Gemm{os, nullptr, D, wm, nullptr, 64, D, bm, nullptr, ms, MK, D, D}}};
-  if ((err = run_gemms(merge, 1, stream))) return err;
+  if ((err = run_gemms<false>(merge, 1, stream))) return err;
   GemmBatch mlp0{{Gemm{x, ms, D, w0a, w0b, 64, 2 * D, b0, nullptr, ys, MK, 2 * D, 2 * D}}};
-  if ((err = run_gemms(mlp0, 1, stream))) return err;
+  if ((err = run_gemms<false>(mlp0, 1, stream))) return err;
   const int rows_per_block = 8;
-  layernorm_relu_kernel<<<(MK + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0, stream>>>(
-      ys, ln_scale, ln_bias, yr, MK, 2 * D);
+  const dim3 ln_grid((MK + rows_per_block - 1) / rows_per_block), ln_block(32 * rows_per_block);
+  if (gelu)
+    layernorm_gelu_kernel<<<ln_grid, ln_block, 0, stream>>>(ys, ln_scale, ln_bias, yr, MK, 2 * D, ln_eps);
+  else
+    layernorm_relu_kernel<<<ln_grid, ln_block, 0, stream>>>(ys, ln_scale, ln_bias, yr, MK, 2 * D, ln_eps);
   if ((err = (int)cudaGetLastError())) return err;
   GemmBatch mlp1{{Gemm{yr, nullptr, 2 * D, w1, nullptr, 64, D, b1, x, out, MK, D, 2 * D}}};
-  return run_gemms(mlp1, 1, stream);
+  return run_gemms<false>(mlp1, 1, stream);
 }

@@ -1,4 +1,5 @@
-"""Feature front ends: ORB (classical) and SuperPoint + SuperGlue (learned)."""
+"""Feature front ends: ORB (classical), SuperPoint + SuperGlue and SuperPoint + LightGlue
+(learned)."""
 
 from forest_slam_tpu_torch.frontend.matching import (
     gather_matched_points,

@@ -45,3 +45,14 @@ def learned_frontend(fe) -> FrontendFns:
         return fe.match_features(f0, f1, image_shape).matches0
 
     return FrontendFns(extract=fe.extract, match=match, name="superpoint_superglue")
+
+
+def lightglue_frontend(sp, lg) -> FrontendFns:
+    """SuperPoint + LightGlue: ``sp``'s extraction (a
+    frontend.learned.LearnedFrontend, the checkpoint's SuperPoint) and the
+    matcher ``lg`` (a frontend.lightglue.LightGlue)."""
+
+    def match(f0, f1, image_shape):
+        return lg.match(f0.xy, f0.desc, f0.valid, f1.xy, f1.desc, f1.valid, image_shape)
+
+    return FrontendFns(extract=sp.extract, match=match, name="superpoint_lightglue")

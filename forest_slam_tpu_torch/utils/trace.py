@@ -19,7 +19,11 @@ would synchronise). ``recording(device=True)`` runs the profiler (kineto, as
 profiler's events, so spans and kernels share one clock; it then splits the device's idle time in the window among
 the innermost spans open over it (``(outside)`` where none is) and credits
 each span with the device busy time in its interval and the kernel launches
-made inside it.
+made inside it, and with the device time of the kernels those launches
+started (the profiler's correlation ids), wherever on the device's timeline
+they ran (a kernel stamped just before the window opened included). That
+kernel time is left None on a span open over a launch call whose kernels
+the profiler did not record (no kernel of its correlation id).
 
 One-shot spans (:func:`setup_span`: the kernel library, the checkpoint) and
 the process's first ``fs.stereo.sequence`` with everything under it (marked
@@ -120,17 +124,19 @@ class Span:
     counter, or, in a ``recording(device=True)``, the profiler's clock.
     After a device recording: ``busy_us`` (device busy in the interval),
     ``idle_us`` (device idle put down to this span as the innermost one
-    open), ``tree_idle_us`` (the same with its descendants') and
-    ``launches`` (kernel launches made inside it)."""
+    open), ``tree_idle_us`` (the same with its descendants'), ``launches``
+    (kernel launches made inside it) and ``kernel_us`` (device time of the
+    kernels those launches started; None where the recording lost a kernel
+    record of one of them, :func:`join`)."""
 
     __slots__ = ("name", "id", "parent", "seq", "attrs", "t0", "t1", "ranged", "busy_us", "idle_us",
-                 "tree_idle_us", "launches", "_oneshot", "_device", "_events", "_rf")
+                 "tree_idle_us", "launches", "kernel_us", "_oneshot", "_device", "_events", "_rf")
 
     def __init__(self, name: str, attrs: dict, oneshot: bool = False, device=None):
         self.name, self.attrs, self.id = name, attrs, next(_ids)
         self._oneshot, self._device = oneshot, device
         self.parent = self.seq = self.t0 = self.t1 = None
-        self.busy_us = self.idle_us = self.tree_idle_us = self.launches = None
+        self.busy_us = self.idle_us = self.tree_idle_us = self.launches = self.kernel_us = None
         self.ranged, self._events, self._rf = False, None, None
 
     def __enter__(self):
@@ -227,6 +233,7 @@ class Trace:
         self.outside_launches = None
         self.launches = None  # kernel launches in the window
         self.kernels = None  # kernels that ran on the device in the window
+        self.lost_launches = None  # launch calls in the window with no kernel record
         self.device_events: list = []  # (start, end, name) of the device's work
 
     def find(self, name: str) -> list[Span]:
@@ -236,7 +243,9 @@ class Trace:
         """Per span name: count, host_ms, self_ms (less its children's),
         frames and pairs summed, and after a device recording busy_ms,
         idle_ms (as the innermost span), tree_idle_ms (with its
-        descendants') and launches (inside it); ``(outside)`` holds the idle
+        descendants'), launches (inside it) and kernel_ms (the device time of
+        the kernels those launches started, None where the recording lost a
+        kernel record of a span of the name); ``(outside)`` holds the idle
         and launches with no span open. The device rows are None on a
         recording of host spans only."""
         joined = self.window_us is not None
@@ -247,7 +256,7 @@ class Trace:
         out: dict = {}
         for s in self.spans:
             r = out.setdefault(s.name, dict(count=0, host_ms=0.0, self_ms=0.0, frames=0, pairs=0, busy_ms=None,
-                                            idle_ms=None, tree_idle_ms=None, launches=None))
+                                            idle_ms=None, tree_idle_ms=None, launches=None, kernel_ms=None))
             r["count"] += 1
             r["host_ms"] += s.host_ms
             r["self_ms"] += s.host_ms - child_ms.get(s.id, 0.0)
@@ -257,6 +266,7 @@ class Trace:
                 for key, v in (("busy_ms", s.busy_us / 1e3), ("idle_ms", s.idle_us / 1e3),
                                ("tree_idle_ms", s.tree_idle_us / 1e3), ("launches", s.launches)):
                     r[key] = (r[key] or 0) + v
+                r["kernel_ms"] = None if s.kernel_us is None else (r["kernel_ms"] or 0) + s.kernel_us / 1e3
         if joined:
             out[OUTSIDE] = dict(count=0, idle_ms=self.outside_idle_us / 1e3, launches=self.outside_launches)
         return out
@@ -291,10 +301,10 @@ class Trace:
         for e in events:
             name = e.name()
             if name in LAUNCH_CALLS:
-                launches.append(e.start_ns())
+                launches.append((e.start_ns(), e.correlation_id()))
             elif e.device_type() == cuda:
                 a = e.start_ns()
-                device.append((a, a + e.duration_ns(), name))
+                device.append((a, a + e.duration_ns(), name, e.correlation_id()))
             else:
                 host_names.add(name)
                 if name.startswith("fs."):
@@ -316,15 +326,27 @@ class Trace:
         self.spans = [s for s in self.spans if s.ranged]
         # a host range's copy on the device's timeline (record_function's)
         # shares its name; a kernel never does
-        device = [((a - w0) / 1e3, (b - w0) / 1e3, n) for a, b, n in device if n not in host_names]
-        join(self, device, [(x - w0) / 1e3 for x in launches], (0.0, (w1 - w0) / 1e3))
+        device = [(a, b, n, c) for a, b, n, c in device if n not in host_names]
+        # a launch call and the kernels it starts share a correlation id
+        # (0: none); None marks a launch whose kernels the profiler lost
+        by_corr: dict = {}
+        for a, b, _, c in device:
+            if c:
+                by_corr[c] = by_corr.get(c, 0) + (b - a)
+        join(self, [((a - w0) / 1e3, (b - w0) / 1e3, n) for a, b, n, _ in device],
+             [(x - w0) / 1e3 for x, _ in launches], (0.0, (w1 - w0) / 1e3),
+             [(by_corr[c] / 1e3 if c in by_corr else None) if c else 0.0 for _, c in launches])
 
 
-def join(tr: Trace, device, launches, window) -> None:
+def join(tr: Trace, device, launches, window, launch_us) -> None:
     """Join ``tr``'s spans with the device's work ``device`` ((start, end,
     name), microseconds), the start times of the launch calls and the
     window (start, end): fills the spans' busy, idle and launch fields and
-    the trace's totals. A kernel is any device event but a copy or a set."""
+    the trace's totals. A kernel is any device event but a copy or a set.
+    ``launch_us`` holds the device microseconds of the kernels each launch
+    call started, wherever they ran, summed into the spans' ``kernel_us``,
+    or None where none of them was recorded: the ``kernel_us`` of a span
+    open over such a call is None."""
     w0, w1 = window
     dev = sorted((max(a, w0), min(b, w1), n) for a, b, n in device if b > w0 and a < w1)
     tr.device_events = dev
@@ -382,10 +404,22 @@ def join(tr: Trace, device, launches, window) -> None:
     t0 = np.asarray([s.t0 for s in spans], dtype=np.float64)
     t1 = np.asarray([s.t1 for s in spans], dtype=np.float64)
     busy = busy_before(np.clip(t1, w0, w1)) - busy_before(np.clip(t0, w0, w1))
-    lt = np.sort(np.asarray([x for x in launches if w0 <= x <= w1], dtype=np.float64))
-    n_launch = np.searchsorted(lt, t1, side="right") - np.searchsorted(lt, t0, side="left")
+    lt = np.asarray(launches, dtype=np.float64)
+    inside = (lt >= w0) & (lt <= w1)
+    order = np.argsort(lt[inside], kind="stable")
+    lt = lt[inside][order]
+    first, last = np.searchsorted(lt, t0, side="left"), np.searchsorted(lt, t1, side="right")
+    n_launch = last - first
+    lus = np.asarray([np.nan if v is None else v for v in launch_us], dtype=np.float64)[inside][order]
+    lost = np.isnan(lus)
+    tr.lost_launches = int(lost.sum())
+    cum_k = np.concatenate([[0.0], np.cumsum(np.where(lost, 0.0, lus))])
+    cum_lost = np.concatenate([[0], np.cumsum(lost)])
+    kernel = cum_k[last] - cum_k[first]
+    whole = cum_lost[last] == cum_lost[first]
     for i, s in enumerate(spans):
         s.busy_us, s.idle_us, s.launches = float(busy[i]), float(idle[i]), int(n_launch[i])
+        s.kernel_us = float(kernel[i]) if whole[i] else None
         s.tree_idle_us = s.idle_us
     for i in range(len(spans) - 1, -1, -1):  # children open after their parents
         p = spans[i].parent

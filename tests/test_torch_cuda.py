@@ -37,8 +37,17 @@ within 0.5% (summation order moves points at the gate), at 1 to 192 pairs,
 DLT-6 and P3P, and with 256 hypotheses under BotanicGarden's distortion on
 six seeds, where only pairs chip_smoke.pnp_degenerate marks may differ (at
 most 5% of a call's pairs, counted); solve_pnp_ransac with its draws
-handed in syncs nothing.
+handed in syncs nothing. LightGlue (``-k lightglue``): the fused layer's
+rotary and GELU variants against their plain versions, and the whole
+matcher's scores against the benchmark's plain reference, at the
+``sp_lightglue.seq962`` cell's shape (48 pairs of 2048 keypoints) with
+full-strength weights, each tolerance beside a control in fp8 that fails
+it; the matcher syncs nothing; SuperGlue's layer gives the bits it gave
+before the variants existed; a device recording credits the fused layer's
+kernels to the self and cross spans that launched them.
 """
+
+import hashlib
 
 import pytest
 import torch
@@ -1261,3 +1270,191 @@ def test_solve_pnp_ransac_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.mean(res.ok.cpu().numpy()) > 0.9
+
+
+# ---------------------------------------------------------------- LightGlue
+
+LG_PAIRS, LG_K = 48, 2048  # the sp_lightglue.seq962 cell's pair chunk and keypoints
+# sha256 of superglue_layer_digest's output bits from the layer kernel as it
+# was before LightGlue's variants (commit bd00a35, an H100 80GB HBM3)
+SUPERGLUE_LAYER_SHA256 = "32baba2bdc47ba211db144fff9f3840dea3e74c145428bfae96ce701aa2a0ed6"
+
+
+def superglue_layer_digest(dev) -> str:
+    """sha256 of the SuperGlue layer kernel's bf16 output on a fixed input:
+    16 sequences of 1024 x 256, a ragged source mask with one sequence all
+    masked, numpy-drawn weights."""
+    import numpy as np
+
+    from forest_slam_tpu_torch.frontend.gnn_kernel import gnn_layer, split_layer_params
+
+    rng = np.random.default_rng(20251018)
+    D, N, K = 256, 16, 1024
+    lp = {
+        "attn": {n: {"kernel": rng.normal(size=(D, D)) * 0.06, "bias": rng.normal(size=D) * 0.1}
+                 for n in ("q", "k", "v", "merge")},
+        "mlp0": {"kernel": rng.normal(size=(2 * D, 2 * D)) * 0.04, "bias": rng.normal(size=2 * D) * 0.1},
+        "ln": {"scale": 1 + rng.normal(size=2 * D) * 0.1, "bias": rng.normal(size=2 * D) * 0.1},
+        "mlp1": {"kernel": rng.normal(size=(2 * D, D)) * 0.04, "bias": rng.normal(size=D) * 0.1},
+    }
+    ws = split_layer_params(lp, 4, device=dev)
+    x = torch.as_tensor(rng.normal(size=(N, K, D)), dtype=torch.float32).to(torch.bfloat16).to(dev)
+    src = torch.as_tensor(rng.normal(size=(N, K, D)), dtype=torch.float32).to(torch.bfloat16).to(dev)
+    mask = torch.as_tensor(rng.random((N, K)) < 0.8).to(dev)
+    mask[-1] = False
+    with torch.no_grad():
+        out = gnn_layer(x, src, mask, ws, 4)
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+
+
+def test_superglue_layer_bits_unchanged_by_the_lightglue_variants(cuda):
+    assert superglue_layer_digest(cuda[0]) == SUPERGLUE_LAYER_SHA256
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_lightglue_layer_variants_kernel(cuda, kind):
+    """The rotary + GELU (self) and shared-q/k + GELU (cross) layer against
+    its plain version at the cell's shape. Both round to bf16 at the same
+    points; float32 sums in another order move a value across a bf16
+    boundary here and there, and that ulp (2^-8 relative) can pass through
+    the LayerNorm and GELU to the output: the largest gap within 2^-5 of the
+    output's largest magnitude, the mean within 2^-10 (the GNN layer
+    kernel's own test allows 0.05 and 2e-3). The plain version on fp8
+    inputs and weights misses the mean. chip_smoke.py's kernel phase holds
+    the same case (chip_smoke.lightglue_layer_case)."""
+    cs = _chip_smoke()
+    c = cs.lightglue_layer_case(cuda[0], kind)
+    (kmax, kmean), (cmax, cmean) = c["kernel"], c["control"]
+    assert c["finite"]
+    assert kmax <= cs.LG_LAYER_MAX == 2 ** -5 and kmean <= cs.LG_LAYER_MEAN == 2 ** -10
+    assert cmean > cs.LG_LAYER_MEAN
+
+
+def lightglue_score_gaps(dev):
+    """(kernel path's, fp8 control's) gaps of the 9-layer matcher's scores
+    at full-strength weights against the bf16 reference on each pair's
+    valid keypoints: (largest, mean) over each pair's largest score
+    magnitude, and the share of valid keypoints whose match (or none)
+    differs."""
+    from bench_port.reference import lightglue as ref
+    from bench_port.reference.common import Precision
+    from forest_slam_tpu_torch.frontend.lightglue import LightGlue, LightGlueConfig
+
+    cfg, sd, xy0, d0, v0, xy1, d1, v1 = _chip_smoke().lightglue_inputs(dev, 9)
+    lg = LightGlue(LightGlueConfig(), sd, device=dev)
+    B = LG_PAIRS
+    with torch.no_grad():
+        x0, r0 = lg.encode(xy0, d0, (600, 960))
+        x1, r1 = lg.encode(xy1, d1, (600, 960))
+        rope = torch.cat([r0, r1]).contiguous()
+        for i in range(9):
+            xs = lg.self_block(i, torch.cat([x0, x1]).contiguous(), torch.cat([v0, v1]), rope)
+            x0, x1 = lg.cross_block(i, xs[:B], xs[B:], v0, v1)
+        scores = lg.log_assignment(x0, x1, v0, v1)
+        got = lg.filter(scores, v0, v1)
+    net = ref.load_weights(sd, dev)
+    out = []
+    for prec in (ref.SOUND, Precision(lower=True)):
+        mx, mean, differ, total = 0.0, 0.0, 0, 0
+        for b in range(B):
+            s, m = ref.forward_pair(xy0[b][v0[b]], d0[b][v0[b]], xy1[b][v1[b]], d1[b][v1[b]], net, cfg, (600, 960),
+                                    prec)
+            gap = (scores[b][v0[b]][:, v1[b]] - s).abs() / s.abs().max()
+            mx, mean = max(mx, gap.max().item()), mean + gap.mean().item() / B
+            i1 = torch.nonzero(v1[b])[:, 0]
+            want = torch.where(m >= 0, i1[m.clamp(min=0)], torch.full_like(m, -1))
+            differ += int((got[b][v0[b]].long() != want).sum())
+            total += int(v0[b].sum())
+        out.append((mx, mean, differ / total))
+    return out
+
+
+def test_lightglue_scores_against_the_reference(cuda):
+    """The whole matcher at the cell's shape (9 layers, 48 pairs of 1700-2048
+    valid keypoints, residual_scale 1) against the plain reference at the
+    configuration's precision. Through 18 full-strength blocks a bf16
+    rounding that the two sides take differently grows, so the scores are
+    held to their size: the largest gap within 2^-5 of a pair's largest
+    score magnitude, the mean within 2^-8, and at most 1% of the keypoints
+    matched differently (on the H100: 0.0108, 0.0014 and 0.05%). The
+    reference one precision below (fp8 operands) misses the largest gap and
+    the mean (0.113 and 0.0143)."""
+    (kmax, kmean, kdiff), (cmax, cmean, cdiff) = lightglue_score_gaps(cuda[0])
+    assert kmax <= 2 ** -5 and kmean <= 2 ** -8 and kdiff <= 0.01
+    assert cmax > 2 ** -5 and cmean > 2 ** -8
+
+
+def test_lightglue_match_makes_no_host_sync(cuda):
+    """The matcher at the cell's shape under sync debug mode "error":
+    nothing in it waits on the card."""
+    from forest_slam_tpu_torch.frontend.lightglue import LightGlue, LightGlueConfig
+
+    dev = cuda[0]
+    cfg, sd, xy0, d0, v0, xy1, d1, v1 = _chip_smoke().lightglue_inputs(dev, 9, residual_scale=0.01)
+    lg = LightGlue(LightGlueConfig(), sd, device=dev)
+    lg.match(xy0, d0, v0, xy1, d1, v1, (600, 960))  # warm: build and first use
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = lg.match(xy0, d0, v0, xy1, d1, v1, (600, 960))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert m.shape == (LG_PAIRS, LG_K) and (m >= 0).sum().item() > 0.5 * v0.sum().item()
+
+
+# run in a process of its own, so that no other profiler session in the
+# test process comes before or after its recording
+_LIGHTGLUE_SPANS_CHILD = r"""
+import importlib.util, json, re, sys
+import torch
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from forest_slam_tpu_torch.frontend.lightglue import LightGlue, LightGlueConfig
+from forest_slam_tpu_torch.utils import trace
+
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg, sd, xy0, d0, v0, xy1, d1, v1 = cs.lightglue_inputs(dev, 2, residual_scale=0.01)
+lg = LightGlue(LightGlueConfig(n_layers=2), sd, device=dev)
+lg.match(xy0, d0, v0, xy1, d1, v1, (cs.H, cs.W))  # warm: build and first use
+torch.cuda.synchronize()
+with trace.recording(device=True) as tr:
+    with trace.span("fs.frontend.match"):
+        lg.match(xy0, d0, v0, xy1, d1, v1, (cs.H, cs.W))
+rows = tr.summary()
+layer = re.compile(r"\b(gemm_kernel|gnn_attention_kernel|layernorm_gelu_kernel)\b")
+print(json.dumps(dict(
+    launches=tr.launches, kernels=tr.kernels, lost=tr.lost_launches,
+    self_ms=rows["fs.lightglue.self"]["kernel_ms"], cross_ms=rows["fs.lightglue.cross"]["kernel_ms"],
+    match_ms=rows["fs.frontend.match"]["kernel_ms"], assign_ms=rows["fs.lightglue.assign"]["kernel_ms"],
+    layer_ran_ms=sum(b - a for a, b, n in tr.device_events if layer.search(n)) / 1e3,
+    kernels_ran_ms=sum(b - a for a, b, n in tr.device_events if not n.startswith(("Memcpy", "Memset"))) / 1e3)))
+"""
+
+
+def test_lightglue_spans_are_credited_the_fused_layers_kernels(cuda):
+    """Under a device recording the join credits each kernel, by the
+    profiler's correlation id, to the spans open over its launch call,
+    wherever on the device's timeline it ran: the self and cross spans get
+    all the device time of the fused layer's kernels (the matcher launches
+    them nowhere else) and the little of the two sets' joins beside it, and
+    the match span every kernel the recording saw. The recording runs in a
+    process of its own (the port's library already built), so no other
+    profiler session shares it; every launch call has its kernel records."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    p = subprocess.run([sys.executable, "-c", _LIGHTGLUE_SPANS_CHILD], cwd=root, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    r = json.loads(p.stdout.strip().splitlines()[-1])
+    assert r["lost"] == 0 and r["launches"] <= r["kernels"]
+    credited, ran = r["self_ms"] + r["cross_ms"], r["layer_ran_ms"]
+    assert ran > 0 and ran * (1 - 1e-6) <= credited <= 1.05 * ran
+    assert r["match_ms"] == pytest.approx(r["kernels_ran_ms"], rel=1e-6)
+    assert r["assign_ms"] > 0

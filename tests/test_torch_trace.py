@@ -109,8 +109,9 @@ def test_profiler_ranges_only_under_an_outside_profiler():
 class _Event:
     """A profiler (kineto) event: nanoseconds, the window starting at 1 ms."""
 
-    def __init__(self, name, start, end, on_device=False):
+    def __init__(self, name, start, end, on_device=False, corr=0):
         self._name, self._start, self._end, self._on = name, 1_000_000 + 1000 * start, 1_000_000 + 1000 * end, on_device
+        self._corr = corr
 
     def name(self):
         return self._name
@@ -123,6 +124,9 @@ class _Event:
 
     def duration_ns(self):
         return self._end - self._start
+
+    def correlation_id(self):
+        return self._corr
 
 
 
@@ -140,7 +144,7 @@ def test_join_splits_idle_by_overlap_and_counts_launches():
     a, b, c = _hand_spans(tr)
     device = [(0, 5, "k0"), (15, 25, "k1"), (30, 35, "Memset (Device)"), (50, 75, "k2"), (95, 100, "k3"),
               (96, 99, "k4")]
-    trace.join(tr, device, [12, 22, 45, 65, 80, 99, 120], (0, 100))
+    trace.join(tr, device, [12, 22, 45, 65, 80, 99, 120], (0, 100), [0.0] * 7)
     assert tr.busy_us == 50 and tr.idle_us == 50 and tr.kernels == 5 and tr.launches == 6
     assert (a.idle_us, b.idle_us, c.idle_us, tr.outside_idle_us) == (15, 10, 15, 10)
     assert a.tree_idle_us == 25 and b.tree_idle_us == 10
@@ -165,10 +169,75 @@ def test_join_from_profiler_events_takes_the_ranges_times():
     assert tr.busy_us == 35 and tr.kernels == 2 and tr.launches == 2
     assert (a.launches, c.launches, tr.outside_launches) == (1, 1, 0)
     assert [d[2] for d in tr.device_events] == ["k1", "k2"]
+    assert (a.kernel_us, b.kernel_us, c.kernel_us) == (0, 0, 0)  # no correlation ids: nothing credited
     tr2 = trace.Trace()
     _hand_spans(tr2)
     with pytest.raises(RuntimeError, match="profiler ranges"):
         tr2._join_profiler([_Event(trace.WINDOW, 0, 100), _Event("fs.a", 10, 60)])
+
+
+def test_join_credits_each_kernel_to_the_span_that_launched_it():
+    """A kernel's device time goes to the spans open over its launch call,
+    matched by correlation id, wherever on the device's timeline it ran: B's
+    launch at 22 starts k1 and k2 (both run after B has closed), A's launch
+    at 12 starts k0, C's at 71 a kernel that runs at 95, and a launch at 45
+    (A alone) starts k4; a host range's device copy credits nothing."""
+    tr = trace.Trace()
+    a, b, c = _hand_spans(tr)
+    events = [_Event(trace.WINDOW, 0, 100), _Event("fs.a", 10, 60), _Event("fs.b", 20, 40), _Event("fs.c", 70, 90),
+              _Event("fs.b", 41, 90, True, corr=7), _Event("cudaLaunchKernel", 12, 13, corr=5),
+              _Event("cudaLaunchKernel", 22, 23, corr=7), _Event("cudaLaunchKernel", 45, 46, corr=9),
+              _Event("cudaLaunchKernelExC", 71, 72, corr=11), _Event("k0", 14, 18, True, corr=5),
+              _Event("k1", 50, 60, True, corr=7), _Event("k2", 60, 63, True, corr=7),
+              _Event("k3", 95, 99, True, corr=11), _Event("k4", 30, 31, True, corr=9)]
+    tr._join_profiler(events)
+    assert tr.lost_launches == 0
+    assert (a.kernel_us, b.kernel_us, c.kernel_us) == (18, 13, 4)
+    assert (a.launches, b.launches, c.launches) == (3, 1, 1)
+    rows = tr.summary()
+    assert rows["fs.b"]["kernel_ms"] == pytest.approx(0.013) and rows["fs.a"]["kernel_ms"] == pytest.approx(0.018)
+
+
+@pytest.mark.parametrize("lost", ["record", "burst"])
+def test_join_refuses_kernel_time_when_kernel_records_are_lost(lost):
+    """A span open over a launch call whose correlation id has no kernel is
+    credited no kernel time (None, not a low number): A and B over the
+    launch at 22, but not C ("record"); all three where the launches at 22
+    and 71 both lost their kernels ("burst"). Busy, idle and launch counts
+    are joined as before."""
+    tr = trace.Trace()
+    a, b, c = _hand_spans(tr)
+    events = [_Event(trace.WINDOW, 0, 100), _Event("fs.a", 10, 60), _Event("fs.b", 20, 40), _Event("fs.c", 70, 90),
+              _Event("cudaLaunchKernel", 12, 13, corr=5), _Event("cudaLaunchKernel", 22, 23, corr=7),
+              _Event("cudaLaunchKernelExC", 71, 72, corr=11), _Event("k0", 14, 18, True, corr=5),
+              _Event("k5", 30, 31, True, corr=13)]
+    if lost == "record":
+        events += [_Event("k3", 95, 99, True, corr=11)]
+    tr._join_profiler(events)
+    assert tr.launches == 3 and tr.lost_launches == (1 if lost == "record" else 2)
+    assert (a.kernel_us, b.kernel_us, c.kernel_us) == (None, None, 4 if lost == "record" else None)
+    assert (a.launches, b.launches, c.launches) == (2, 1, 1)
+    rows = tr.summary()
+    assert all(rows[n]["kernel_ms"] is None for n in ("fs.a", "fs.b"))
+    assert rows["fs.c"]["kernel_ms"] == (pytest.approx(0.004) if lost == "record" else None)
+    assert rows["fs.a"]["launches"] == 2
+    assert rows["fs.a"]["busy_ms"] == pytest.approx(0.005)
+
+
+def test_join_credits_a_kernel_stamped_before_the_window_opened():
+    """B's launch at 22 starts k1, stamped before the window opened. Its
+    device time is credited to A and B by correlation id, and left out of
+    the window's kernels and busy time."""
+    tr = trace.Trace()
+    a, b, c = _hand_spans(tr)
+    events = [_Event(trace.WINDOW, 0, 100), _Event("fs.a", 10, 60), _Event("fs.b", 20, 40), _Event("fs.c", 70, 90),
+              _Event("cudaLaunchKernel", 12, 13, corr=5), _Event("cudaLaunchKernel", 22, 23, corr=7),
+              _Event("cudaLaunchKernelExC", 71, 72, corr=11), _Event("k0", 14, 18, True, corr=5),
+              _Event("k3", 95, 99, True, corr=11), _Event("k1", -5, -2, True, corr=7)]
+    tr._join_profiler(events)
+    assert tr.launches == 3 and tr.kernels == 2 and tr.lost_launches == 0
+    assert (a.kernel_us, b.kernel_us, c.kernel_us) == (7, 3, 4)
+    assert tr.busy_us == 8
 
 
 @pytest.fixture(scope="module")
